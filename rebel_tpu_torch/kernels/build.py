@@ -1,0 +1,95 @@
+"""Build the port's CUDA kernels on first use and load them with ctypes.
+
+Each kernel is one ``.cu`` file beside this module with a plain C
+interface.  ``load(name)`` compiles it with ``nvcc`` for ``sm_90a`` into
+``rebel_tpu_torch/_build/`` (listed in ``.gitignore``), keyed by a hash of
+the source and flags, and loads the shared library.  A plain C interface
+keeps PyTorch's headers out of the compile: it takes seconds where a
+``torch.utils.cpp_extension`` build takes minutes.  Nothing is compiled
+when this module is imported, and a missing ``nvcc`` or a failed compile
+raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+KERNEL_DIR = pathlib.Path(__file__).resolve().parent
+BUILD_DIR = KERNEL_DIR.parent / "_build"
+# No --use_fast_math: it changes division, exp and rsqrt and flushes
+# denormals, and the kernels are held to their plain versions at f32
+# rounding (the limits are in chip_smoke.py).
+NVCC_FLAGS = [
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+# Seconds each kernel took to compile in this process (0.0: found built).
+build_seconds: dict[str, float] = {}
+
+
+def nvcc_path() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and (pathlib.Path(root) / "bin" / "nvcc").exists():
+            return str(pathlib.Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built"
+        )
+    return found
+
+
+def library_path(name: str) -> pathlib.Path:
+    src = (KERNEL_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(name: str) -> pathlib.Path:
+    """Compile ``kernels/<name>.cu`` unless a build of this exact source
+    exists; returns the library path.  The compiler's output (register
+    and shared-memory use per kernel) is kept beside it as ``.log``."""
+    so = library_path(name)
+    if so.exists():
+        build_seconds.setdefault(name, 0.0)
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           str(KERNEL_DIR / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds[name] = time.perf_counter() - t0
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed to build {name}.cu:\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, so)
+    return so
+
+
+def load(name: str) -> ctypes.CDLL:
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        _loaded[name] = lib
+    return lib
+
+
+def build_log(name: str) -> str:
+    path = library_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
