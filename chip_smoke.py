@@ -7,30 +7,55 @@ From the root of a checkout, on a machine with an NVIDIA GPU (written for
 an H100, ``sm_90a``).  It
 
 1. prints the card's name and power limit and builds the fused depth-2
-   CFR kernel (``rebel_tpu_torch/kernels/grid2_cfr.cu``) with ``nvcc``;
-2. holds the kernel against its plain PyTorch version
+   solve (``rebel_tpu_torch/kernels/grid2_cfr.cu``: the CFR kernel
+   ``grid2_cfr`` and the fictitious-play kernel ``grid2_fp``) with
+   ``nvcc``;
+2. ``cfr-checks``: holds ``grid2_cfr`` against its plain PyTorch version
    (``solving.grid2p.solve_reference``) on the card at 1x4f, B=256: f32
    with LayerNorm, f32 without LayerNorm, no net, bf16 with the fast GELU,
    DCFR (plain and clamped), CFR without discounts, and 1 and 3 hidden
    layers; over 4 iterations to an absolute limit and over 64 iterations
    (1024 without a net) by statistics limited by a
    plain(card)-vs-plain(cpu) control;
-3. trains the 1x4f 256x2 CFR self-play trainer at full width (1024
-   iterations, 1024 lanes, bf16 MLP, batch 512) for burn-in and two
-   epochs through that kernel, with the kernel's launch count reset just
-   before and read just after;
-4. holds the kernel to its plain version at the main path's shapes
-   (4 iterations on random states; 1024 iterations on the walked
-   episodes), times both and the bound, and prints them as one
-   ``{"kernels": [...]}`` line;
-5. prints ``{"ok": true, "device": {...}}`` as the last line.
+3. ``fp-checks``: the same for ``grid2_fp``: plain, linear and optimistic
+   linear FP, no net, bf16;
+4. ``cfr-selfplay``: trains the 1x4f 256x2 CFR self-play trainer at full
+   width (1024 iterations, 1024 lanes, bf16 MLP, batch 512) for burn-in
+   and two epochs through ``grid2_cfr``;
+5. ``cfr-shapes``: holds ``grid2_cfr`` to its plain version at that path's
+   shapes (4 iterations on random states; 1024 iterations on the walked
+   episodes), and times both;
+6. ``eval``: evaluates the repo's two trained 1x4f nets at the paper
+   protocol (``eval.recursive_eval.run_eval``: 1024 subgame iterations x
+   1024 repeats, depth-2 subgames, kernel engine, bf16 MLP, f32 solve): linear CFR with ``r4_1x4cfr/epoch990.params`` and linear FP
+   with ``r5_1x4fp/epoch800.params``, each beside a zero-net control, and
+   prints the exploitability by repeat count with the launches, the
+   kernel seconds (CUDA events) and the wall seconds;
+7. ``exploit-check``: runs the same evaluation at 16 repeats once through
+   the kernels and once through their plain version on the card, and
+   holds the two exploitabilities to each other: a quantity that does not
+   drift with the iterates' chaos;
+8. ``fp-selfplay``: burn-in and one epoch of the same trainer with linear
+   FP through ``grid2_fp``, then ``grid2_fp`` against its plain version
+   at that path's shapes, timed;
+9. prints one ``{"kernels": [...]}`` line with both kernels and
+   ``{"ok": true, "device": {...}}`` as the last line.
+
+The launch counts of both kernels are set to 0 just before each of the
+four paths (4, 6 for each net, 8) and read just after; a kernel that a
+path should run and did not fails the run.
+
+``--phases a,b`` runs only the named phases (and the build); such a run
+prints no result line.
 
 It exits non-zero, printing no result, without CUDA, outside a checkout,
-or when any check fails.  Weights and data are random, made from seeds.
+or when any check fails.  Weights of the trainers and the checks' data
+are random, made from seeds.
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import math
@@ -69,6 +94,13 @@ H100_HBM_BYTES_PER_S = 3.35e12
 #   there).  Each is held to LONG_FACTOR times the same statistic of the
 #   plain(card)-vs-plain(cpu) control, or to its floor if that is larger.
 #   Limits and the readings behind them: PERF.md, Findings.
+#
+# Fictitious play averages best responses, so its iterates do not amplify
+# rounding; what it has instead is discontinuity: a rounding difference
+# in a leaf value flips a best response on a lane whose two best actions
+# are nearly tied, and that lane's average policy then differs by that
+# iteration's weight.  Such lanes are counted apart (FP_TIE_SHARE) and all
+# others hold the absolute limit over 4 and over 64 iterations.
 CHECK_ITERS = 4
 LONG_ITERS = 64
 # Without a net the iterates stay close to deterministic, so the no-net
@@ -87,7 +119,59 @@ LONG_FLOOR = {"rvm_mean": 1e-5, "rvm_max": 3e-3, "lanes": 0.02}
 # most this share of lanes may be such ties; they are left out of the
 # 1024-iteration statistics.
 TIE_SHARE = 0.01
-CONTROL_LANES = 256  # lanes of the 1024-iteration control run on the CPU
+FP_TIE_SHARE = 0.02
+# FP's limits for a fresh net; the kernel's and the plain version's best
+# responses see leaf values that agree to a few f32 ulps, so the limits
+# sit well below CFR's.  Readings and mutants: PERF.md.
+TOL_FP_F32 = 1e-5
+TOL_FP_BF16 = 1e-4
+# FP over the self-play path's 1024 iterations, kernel against plain
+# version on the card: FP does not drift, so these hold with no control
+# behind them, a few times above the correct kernel's readings and below
+# those of a late-starting mutant (PERF.md).
+FP_LONG_LIMIT = {"rvm_mean": 1e-6, "rvm_max": 1.5e-3, "lanes": 0.02}
+CONTROL_LANES = 64  # lanes of the 1024-iteration control run on the CPU
+
+# The evaluation (phase 6).  Exploitabilities that the JAX package
+# measured on the same two nets (results/PROTOCOL.md): the full-tree
+# solve in f32, and the sampled evaluation at 1024 repeats with its fused
+# kernel (bf16 MLP) and with its grid engine (f32).
+EVAL_CELLS = {
+    "cfr": dict(ckpt="results/liars_sp/r4_1x4cfr/ckpt/epoch990.params",
+                full_tree=0.000331, jax_kernel_bf16=0.007618,
+                jax_grid_f32=0.022356),
+    "fp": dict(ckpt="results/liars_sp/r5_1x4fp/ckpt/epoch800.params",
+               full_tree=0.009909, jax_kernel_bf16=0.028013,
+               jax_grid_f32=0.036275),
+}
+EVAL_REPEATS = 1024
+# The full-tree exploitability after 1024 iterations, as a band around the
+# JAX package's f32 reading.  FP's is reproducible: within 5%.  CFR's is
+# not: its iterates are chaotic (see above), and the JAX package itself
+# reads 0.000331 in f32 on a TPU, 0.001369 in f32 and 0.000436 in f64 on a
+# CPU (PERF.md), so the band only tells a solve that converged from one
+# that did not.  What holds the full-tree solvers tightly is GOLDEN: the
+# exploitability at every power-of-two iteration of a 64-iteration f64
+# solve on the card against the fixtures of the C++ implementation, at the
+# tolerance of tests/test_golden_parity.py.
+FULL_TREE_BAND = {"cfr": (0.5, 5.0), "fp": (0.95, 1.05)}
+GOLDEN = {"cfr": "tests/golden/cfr_linear_1x4.json",
+          "fp": "tests/golden/fp_linear_1x4.json"}
+GOLDEN_ATOL, GOLDEN_RTOL = 2e-6, 1e-5
+# The 1024-repeat exploitability must lie between BAND_LO times the lower
+# and BAND_HI times the higher of the JAX package's two readings for the
+# net.  The band is wide because those two readings differ by 1.3x (FP)
+# to 2.9x (CFR) through arithmetic alone; readings and reason in PERF.md.
+BAND_LO, BAND_HI = 0.5, 1.5
+ZERO_NET_REPEATS = 64
+# The check that does not drift (phase 7): repeats, and the limit on
+# |exploitability(kernel) - exploitability(plain)| relative to the plain
+# version's.  Readings and mutants: PERF.md.
+EXPLOIT_REPEATS = 16
+EXPLOIT_RTOL = {"cfr": 0.10, "fp": 0.02}
+
+PHASES = ("cfr-checks", "fp-checks", "cfr-selfplay", "cfr-shapes", "eval",
+          "exploit-check", "fp-selfplay")
 
 
 def fail(msg: str) -> None:
@@ -96,6 +180,14 @@ def fail(msg: str) -> None:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of: " + ", ".join(PHASES))
+    opts = ap.parse_args()
+    phases = [p for p in opts.phases.split(",") if p]
+    if any(p not in PHASES for p in phases):
+        fail(f"unknown phase in {phases}; known: {PHASES}")
+    whole = set(phases) == set(PHASES)
     try:
         import torch
     except ImportError:
@@ -106,13 +198,18 @@ def main() -> int:
         fail("run chip_smoke.py from the root of a checkout of the repo")
     sys.path.insert(0, str(ROOT))
 
+    from rebel_tpu_torch.eval import recursive, recursive_eval
     from rebel_tpu_torch.games.liars_dice import LiarsDice
     from rebel_tpu_torch.kernels import build
     from rebel_tpu_torch.nets.cfv_net import CFVNet
+    from rebel_tpu_torch.nets.value_nets import zero_value_fn
     from rebel_tpu_torch.selfplay.runner import RecursiveSolvingParams
-    from rebel_tpu_torch.solving import grid2p
+    from rebel_tpu_torch.solving import exploitability, grid2p
+    from rebel_tpu_torch.solving.core import RootCtx, SolverContext
     from rebel_tpu_torch.solving.params import SubgameSolvingParams
+    from rebel_tpu_torch.solving.solver import build_solver
     from rebel_tpu_torch.training.trainer import Trainer, TrainerConfig
+    from rebel_tpu_torch.tree import unroll_tree
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -120,12 +217,36 @@ def main() -> int:
     failures: list[str] = []
     phase_s: dict[str, float] = {}  # host seconds per phase
     mark = time.perf_counter()
+    KERNELS = ("grid2_cfr", "grid2_fp")
+    # Per kernel: launches summed over the paths, and what the shape
+    # phases measured.
+    launches = dict.fromkeys(KERNELS, 0)
+    measured: dict[str, dict] = {}
 
     def lap(name: str) -> None:
         nonlocal mark
         now = time.perf_counter()
         phase_s[name] = round(now - mark, 1)
         mark = now
+
+    def reset_counts() -> None:
+        grid2p.solve.launches = 0
+        for k in KERNELS:
+            grid2p.solve.launches_by_kernel[k] = 0
+
+    def read_counts(path: str, runs: str, expect: int | None = None) -> int:
+        """Add the path's launches to the totals; the kernel ``runs`` must
+        have been launched (``expect`` times, if given)."""
+        got = dict(grid2p.solve.launches_by_kernel)
+        for k in KERNELS:
+            launches[k] += got[k]
+        print(f"  launches on this path: {got}")
+        if got[runs] == 0:
+            failures.append(f"{path} launched {runs} no time")
+        elif expect is not None and got[runs] != expect:
+            failures.append(f"{path}: {got[runs]} launches of {runs}, "
+                            f"expected {expect}")
+        return got[runs]
 
     # ------------------------------------------------------------ 1. card
     smi = subprocess.run(
@@ -137,7 +258,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     build.load("grid2_cfr")
-    print(f"kernel build: grid2_cfr {build.build_seconds['grid2_cfr']:.1f} s")
+    print(f"kernel build: grid2_cfr.cu (grid2_cfr, grid2_fp) "
+          f"{build.build_seconds['grid2_cfr']:.1f} s")
     for line in build.build_log("grid2_cfr").splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
@@ -158,6 +280,11 @@ def main() -> int:
     def max_diff(a, b) -> float:
         return max(float((x.cpu() - y.cpu()).abs().max())
                    for x, y in zip(a, b))
+
+    def lane_diff(a, b):
+        """Per lane: max abs diff over all three outputs."""
+        return torch.stack([(x.cpu() - y.cpu()).abs().flatten(1).amax(1)
+                            for x, y in zip(a, b)]).amax(0)
 
     def finite(out) -> bool:
         return all(bool(torch.isfinite(x).all()) for x in out)
@@ -211,6 +338,23 @@ def main() -> int:
             failures.append(f"kernel check {label}")
         return diff
 
+    def tie_check(label, out, ref, tol, share=FP_TIE_SHARE) -> float:
+        """FP: every lane within ``tol`` but for a counted share of tie
+        lanes (a flipped best response).  Returns the max abs diff over
+        the other lanes."""
+        d = lane_diff(out, ref)
+        ties = d > tol
+        rest = float(d[~ties].max()) if bool((~ties).any()) else 0.0
+        got = float(ties.float().mean())
+        ok = finite(out) and got <= share
+        print(f"check {label}: max_abs_diff={rest:.3e} limit={tol:.1e} on "
+              f"{int((~ties).sum())} lanes; {int(ties.sum())} tie lanes "
+              f"(share {got:.3e}, limit {share:.0e}) "
+              f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            failures.append(f"kernel check {label}")
+        return rest
+
     def precision_control(label, args, tol) -> None:
         """The kernel in f32 against the plain version in bf16: must miss
         ``tol``, or that limit would pass a kernel that skips the bf16
@@ -223,201 +367,467 @@ def main() -> int:
         if not ok:
             failures.append(f"bf16 limit does not separate ({label})")
 
-    # ---------------------------------------- 2. kernel vs plain version
     def cfr(num_iters, **kw):
         kw.setdefault("linear_update", True)
         return SubgameSolvingParams(num_iters=num_iters, max_depth=2,
                                     use_cfr=True, **kw)
 
-    dcfr = dict(linear_update=False, dcfr=True, dcfr_alpha=1.5,
-                dcfr_beta=0.5, dcfr_gamma=2.0)
-    dcfr_clamped = dict(linear_update=False, dcfr=True, dcfr_alpha=5.0,
-                        dcfr_beta=-5.0, dcfr_gamma=1.0)
-    # name, solver params, hidden layers (0: no net), LayerNorm, dtype
-    modes = [
-        ("f32_ln", {}, 2, True, torch.float32),
-        ("f32_noln", {}, 2, False, torch.float32),
-        ("nonet", {}, 0, True, torch.float32),
-        ("bf16_ln_fastgelu", {}, 2, True, torch.bfloat16),
-        ("f32_dcfr", dcfr, 2, True, torch.float32),
-        ("f32_dcfr_clamped", dcfr_clamped, 2, True, torch.float32),
-        ("f32_plain_cfr", dict(linear_update=False), 2, True, torch.float32),
-        ("f32_1layer", {}, 1, True, torch.float32),
-        ("f32_3layers", {}, 3, True, torch.float32),
-    ]
-    for k, (name, kw, layers, use_ln, dtype) in enumerate(modes):
-        net = net_dev = None
-        if layers:
-            net = CFVNet(game, 256, layers, use_ln,
-                         generator=torch.Generator().manual_seed(10 + k))
-            net_dev = copy.deepcopy(net).to(dev)
-        tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
-        for iters in ((CHECK_ITERS, LONG_ITERS)
-                      + ((NONET_ITERS,) if net is None else ())):
-            inputs = random_inputs(256, iters, 20 + k)
-            args = (game, cfr(iters, **kw), *inputs, net_dev)
-            out = grid2p.solve(*args, dtype)
-            ref = grid2p.solve_reference(*args, dtype)
-            label = f"{name}: B=256 iters={iters}"
-            if iters == CHECK_ITERS:
-                short_check(label, out, ref, tol)
-                if dtype == torch.bfloat16:
-                    precision_control(label, args, tol)
-                continue
-            cpu = grid2p.solve_reference(
-                game, cfr(iters, **kw), *[x.cpu() for x in inputs], net,
-                dtype)
-            long_check(label, out, ref, ref, cpu)
+    def fp(num_iters, **kw):
+        kw.setdefault("linear_update", True)
+        return SubgameSolvingParams(num_iters=num_iters, max_depth=2,
+                                    use_cfr=False, **kw)
 
-    lap("checks")
+    def fresh_net(layers, use_ln, seed):
+        if not layers:
+            return None, None
+        net = CFVNet(game, 256, layers, use_ln,
+                     generator=torch.Generator().manual_seed(seed))
+        return net, copy.deepcopy(net).to(dev)
 
-    # ------------------------------------------------ 3. the main path
-    sub = cfr(1024)
-    cfg = TrainerConfig(
-        env=RecursiveSolvingParams(num_dice=1, num_faces=4,
-                                   subgame_params=sub,
-                                   random_action_prob=0.25, sample_leaf=True),
-        n_hidden=256, n_layers=2, use_layer_norm=True,
-        train_epoch_size=25600, train_batch_size=512, train_gen_ratio=4,
-        selfplay_batch=1024, net_compute_dtype=torch.bfloat16, seed=0,
-    )
-    trainer = Trainer(cfg, device="cuda")
-    grid2p.solve.launches = 0
-    t0 = time.perf_counter()
-    metrics = trainer.run(max_epochs=2)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = grid2p.solve.launches
+    # ------------------------------------ 2. grid2_cfr vs plain version
+    if "cfr-checks" in phases:
+        dcfr = dict(linear_update=False, dcfr=True, dcfr_alpha=1.5,
+                    dcfr_beta=0.5, dcfr_gamma=2.0)
+        dcfr_clamped = dict(linear_update=False, dcfr=True, dcfr_alpha=5.0,
+                            dcfr_beta=-5.0, dcfr_gamma=1.0)
+        # name, solver params, hidden layers (0: no net), LayerNorm, dtype
+        modes = [
+            ("f32_ln", {}, 2, True, torch.float32),
+            ("f32_noln", {}, 2, False, torch.float32),
+            ("nonet", {}, 0, True, torch.float32),
+            ("bf16_ln_fastgelu", {}, 2, True, torch.bfloat16),
+            ("f32_dcfr", dcfr, 2, True, torch.float32),
+            ("f32_dcfr_clamped", dcfr_clamped, 2, True, torch.float32),
+            ("f32_plain_cfr", dict(linear_update=False), 2, True,
+             torch.float32),
+            ("f32_1layer", {}, 1, True, torch.float32),
+            ("f32_3layers", {}, 3, True, torch.float32),
+        ]
+        for k, (name, kw, layers, use_ln, dtype) in enumerate(modes):
+            net, net_dev = fresh_net(layers, use_ln, 10 + k)
+            tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+            for iters in ((CHECK_ITERS, LONG_ITERS)
+                          + ((NONET_ITERS,) if net is None else ())):
+                inputs = random_inputs(256, iters, 20 + k)
+                args = (game, cfr(iters, **kw), *inputs, net_dev)
+                out = grid2p.solve(*args, dtype)
+                ref = grid2p.solve_reference(*args, dtype)
+                label = f"cfr {name}: B=256 iters={iters}"
+                if iters == CHECK_ITERS:
+                    short_check(label, out, ref, tol)
+                    if dtype == torch.bfloat16:
+                        precision_control(label, args, tol)
+                    continue
+                cpu = grid2p.solve_reference(
+                    game, cfr(iters, **kw), *[x.cpu() for x in inputs], net,
+                    dtype)
+                long_check(label, out, ref, ref, cpu)
+        lap("cfr-checks")
 
-    solve_ms = [s.elapsed_time(e) for s, e in trainer.engine.solve_events]
-    mean_solve_ms = sum(solve_ms) / len(solve_ms)
-    B, iters = cfg.selfplay_batch, sub.num_iters
-    flops = grid2p.mlp_flops_per_lane_iter(game, cfg.n_hidden,
-                                           cfg.n_layers) * B * iters
-    gen_s = sum(m["timing/gen"] for m in metrics) + metrics[0][
-        "timing/burn_in"]
-    gen_examples = 2 * B * trainer.gen_steps
-    train_s = sum(m["timing/train"] for m in metrics)
-    steps = trainer.steps_per_epoch * len(metrics)
-    losses = [m["loss/train"] for m in metrics]
-    print(f"main path: 1x4f CFVNet 256x2 LN, linear CFR {iters} iters, "
-          f"{B} lanes, bf16 MLP, batch {cfg.train_batch_size}: "
-          f"burn-in + {len(metrics)} epochs in {wall_s:.2f} s, "
-          f"{trainer.gen_steps} batch_steps, {launches} kernel launches")
-    print(f"  solve ms per batch_step: {mean_solve_ms:.3f} "
-          f"(min {min(solve_ms):.3f}, max {max(solve_ms):.3f}; CUDA events)")
-    print(f"  CFR subgame-iters/s: {B * iters / (mean_solve_ms / 1e3):.4e}")
-    print(f"  MLP FLOP/s: {flops / (mean_solve_ms / 1e3):.4e} "
-          f"({flops:.4e} FLOP per batch_step)")
-    print(f"  examples/s: {gen_examples / gen_s:.1f} "
-          f"({gen_examples} examples, generation {gen_s:.2f} s)")
-    print(f"  train steps/s: {steps / train_s:.2f} ({steps} steps)")
-    print(f"  loss/train per epoch: {losses}")
-    if launches == 0:
-        failures.append("the main path launched the kernel no time")
-    if launches != trainer.gen_steps:
-        failures.append(f"{launches} launches for {trainer.gen_steps} "
-                        "batch_steps")
-    if not all(math.isfinite(x) for x in losses):
-        failures.append("non-finite training loss")
-    rp = trainer.replay
-    if not (finite((rp.queries[:rp.size], rp.values[:rp.size]))
-            and rp.num_add == gen_examples):
-        failures.append("replay holds non-finite or missing rows")
-    bel_sums = trainer.episodes.beliefs.sum(-1)
-    if not torch.allclose(bel_sums, torch.ones_like(bel_sums), atol=1e-4):
-        failures.append("episode beliefs do not sum to one")
+    # ------------------------------------- 3. grid2_fp vs plain version
+    if "fp-checks" in phases:
+        # name, solver params, hidden layers (0: no net), dtype.  The last
+        # mode holds the tie rule: without a net every pseudo-leaf is
+        # worth exactly 0, and with point-mass beliefs every sum has one
+        # term, so values that tie do so bit for bit in both versions, at
+        # the root too, and the lowest tied action must win in both.
+        modes = [
+            ("plain_f32", dict(linear_update=False), 2, torch.float32),
+            ("linear_f32", {}, 2, torch.float32),
+            ("linear_optimistic_f32", dict(optimistic=True), 2,
+             torch.float32),
+            ("linear_nonet", {}, 0, torch.float32),
+            ("linear_bf16", {}, 2, torch.bfloat16),
+            ("linear_nonet_pointmass", {}, 0, torch.float32),
+        ]
+        for k, (name, kw, layers, dtype) in enumerate(modes):
+            net, net_dev = fresh_net(layers, True, 40 + k)
+            tol = TOL_FP_BF16 if dtype == torch.bfloat16 else TOL_FP_F32
+            for iters in (CHECK_ITERS, LONG_ITERS):
+                inputs = random_inputs(256, iters, 50 + k)
+                if name.endswith("pointmass"):
+                    inputs[2] = (inputs[2] == inputs[2].amax(
+                        -1, keepdim=True)).float()
+                args = (game, fp(iters, **kw), *inputs, net_dev)
+                out = grid2p.solve(*args, dtype)
+                ref = grid2p.solve_reference(*args, dtype)
+                label = f"fp {name}: B=256 iters={iters}"
+                tie_check(label, out, ref, tol)
+                if iters == CHECK_ITERS:
+                    if dtype == torch.bfloat16:
+                        precision_control(label, args, tol)
+                    continue
+                cpu = grid2p.solve_reference(
+                    game, fp(iters, **kw), *[x.cpu() for x in inputs], net,
+                    dtype)
+                long_check(label, out, ref, ref, cpu)
+        lap("fp-checks")
 
-    lap("main path")
+    # ----------------------------------------- 4./8. self-play trainers
+    B = 1024
+    ITERS = 1024
 
-    # ------------- 4. the kernel at the main path's shapes: time and bound
-    # The trained net in bf16 at B=1024.  Over CHECK_ITERS iterations the
-    # kernel is held to its plain version on random states: the walked
-    # states hold exact ties between two actions' values, which f32
-    # rounding breaks one way in one version and the other way (or not at
-    # all) in the other, so that lane's policy differs by up to 1 from the
-    # first iteration.  Over the main path's iterations it is held on the
-    # walked states by the statistics of long_check, whose share of lanes
-    # absorbs such ties.
-    ep = trainer.episodes
-    gen = torch.Generator(dev).manual_seed(7)
+    def selfplay(name: str, sub, epochs: int):
+        """Burn-in and ``epochs`` epochs of the 1x4f 256x2 trainer at full
+        width through the kernel that solves ``sub``."""
+        cfg = TrainerConfig(
+            env=RecursiveSolvingParams(num_dice=1, num_faces=4,
+                                       subgame_params=sub,
+                                       random_action_prob=0.25,
+                                       sample_leaf=True),
+            n_hidden=256, n_layers=2, use_layer_norm=True,
+            train_epoch_size=25600, train_batch_size=512, train_gen_ratio=4,
+            selfplay_batch=B, net_compute_dtype=torch.bfloat16, seed=0,
+        )
+        trainer = Trainer(cfg, device="cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.run(max_epochs=epochs)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        kernel = grid2p.kernel_name(sub)
+        solve_ms = [s.elapsed_time(e) for s, e in trainer.engine.solve_events]
+        mean_solve_ms = sum(solve_ms) / len(solve_ms)
+        flops = grid2p.mlp_flops_per_lane_iter(
+            game, cfg.n_hidden, cfg.n_layers) * B * sub.num_iters
+        gen_s = sum(m["timing/gen"] for m in metrics) + metrics[0][
+            "timing/burn_in"]
+        gen_examples = 2 * B * trainer.gen_steps
+        train_s = sum(m["timing/train"] for m in metrics)
+        steps = trainer.steps_per_epoch * len(metrics)
+        losses = [m["loss/train"] for m in metrics]
+        print(f"{name}: 1x4f CFVNet 256x2 LN, linear "
+              f"{'CFR' if sub.use_cfr else 'FP'} {sub.num_iters} iters, "
+              f"{B} lanes, bf16 MLP, batch {cfg.train_batch_size}: "
+              f"burn-in + {len(metrics)} epochs in {wall_s:.2f} s, "
+              f"{trainer.gen_steps} batch_steps")
+        read_counts(name, kernel, expect=trainer.gen_steps)
+        print(f"  solve ms per batch_step: {mean_solve_ms:.3f} "
+              f"(min {min(solve_ms):.3f}, max {max(solve_ms):.3f}; "
+              "CUDA events)")
+        print(f"  subgame-iters/s: "
+              f"{B * sub.num_iters / (mean_solve_ms / 1e3):.4e}")
+        print(f"  MLP FLOP/s: {flops / (mean_solve_ms / 1e3):.4e} "
+              f"({flops:.4e} FLOP per batch_step)")
+        print(f"  examples/s: {gen_examples / gen_s:.1f} "
+              f"({gen_examples} examples, generation {gen_s:.2f} s)")
+        print(f"  train steps/s: {steps / train_s:.2f} ({steps} steps)")
+        print(f"  loss/train per epoch: {losses}")
+        if not all(math.isfinite(x) for x in losses):
+            failures.append(f"{name}: non-finite training loss")
+        rp = trainer.replay
+        if not (finite((rp.queries[:rp.size], rp.values[:rp.size]))
+                and rp.num_add == gen_examples):
+            failures.append(f"{name}: replay holds non-finite or missing "
+                            "rows")
+        bel_sums = trainer.episodes.beliefs.sum(-1)
+        if not torch.allclose(bel_sums, torch.ones_like(bel_sums),
+                              atol=1e-4):
+            failures.append(f"{name}: episode beliefs do not sum to one")
+        return trainer
 
-    def main_args(num_iters, states):
-        t_stop = torch.randint(0, num_iters + 1, (B,), device=dev,
-                               generator=gen)
-        return (game, cfr(num_iters), *states, t_stop, trainer.net)
+    def shapes(kernel: str, make_params, trainer, check_1024) -> None:
+        """The kernel at its self-play path's shapes (the trained net in
+        bf16 at B lanes): held to its plain version over CHECK_ITERS
+        iterations on random states and on the walked episodes, then timed
+        against it over the path's iterations, with the bound.
 
-    args = main_args(CHECK_ITERS, random_inputs(B, CHECK_ITERS, 30)[:3])
-    label = f"bf16 main shapes: B={B} iters={CHECK_ITERS}"
-    err = short_check(label, grid2p.solve(*args, torch.bfloat16),
-                      grid2p.solve_reference(*args, torch.bfloat16),
-                      TOL_BF16_TRAINED)
-    precision_control(label, args, TOL_BF16_TRAINED)
+        Over CHECK_ITERS iterations the random states hold single values;
+        the walked states hold exact ties between two actions' values,
+        which f32 rounding breaks one way in one version and the other
+        way (or not at all) in the other, so those lanes are counted."""
+        ep = trainer.episodes
+        gen = torch.Generator(dev).manual_seed(7)
 
-    walked = (ep.root_bid, ep.root_player, ep.beliefs)
-    args = main_args(CHECK_ITERS, walked)
-    ties = snap_diff(grid2p.solve(*args, torch.bfloat16),
-                     grid2p.solve_reference(*args, torch.bfloat16)) > LANE_TOL
-    share = float(ties.float().mean())
-    print(f"walked episodes: B={B} iters={CHECK_ITERS} {int(ties.sum())} "
-          f"lanes with exact value ties (share {share:.3e}, limit "
-          f"{TIE_SHARE:.0e}) {'ok' if share <= TIE_SHARE else 'MISS'}")
-    if share > TIE_SHARE:
-        failures.append("walked episodes: too many lanes differ within "
-                        f"{CHECK_ITERS} iterations")
-    args = main_args(iters, walked)
-    out = grid2p.solve(*args, torch.bfloat16)  # warm
-    torch.cuda.synchronize()
-    reps = 3
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        out = grid2p.solve(*args, torch.bfloat16)
-    end.record()
-    end.synchronize()
-    kernel_ms = start.elapsed_time(end) / reps
-    start.record()
-    ref = grid2p.solve_reference(*args, torch.bfloat16)
-    end.record()
-    end.synchronize()
-    plain_ms = start.elapsed_time(end)
-    n = CONTROL_LANES
-    cpu = grid2p.solve_reference(game, args[1],
-                                 *[x[:n].cpu() for x in args[2:6]],
-                                 copy.deepcopy(trainer.net).cpu(),
-                                 torch.bfloat16)
-    long_check(f"bf16 main shapes, walked episodes: B={B} iters={iters} "
-               f"(ties left out; control on {n} lanes)", out, ref,
-               grid2p.Grid2Outputs(*(x[:n] for x in ref)), cpu,
-               keys=("rvm_mean", "rvm_max"), keep=~ties, keep_part=~ties[:n])
-    lap("main shapes")
+        def main_args(num_iters, states):
+            t_stop = torch.randint(0, num_iters + 1, (B,), device=dev,
+                                   generator=gen)
+            return (game, make_params(num_iters), *states, t_stop,
+                    trainer.net)
+
+        args = main_args(CHECK_ITERS, random_inputs(B, CHECK_ITERS, 30)[:3])
+        label = f"{kernel} bf16 main shapes: B={B} iters={CHECK_ITERS}"
+        check = short_check if kernel == "grid2_cfr" else tie_check
+        err = check(label, grid2p.solve(*args, torch.bfloat16),
+                    grid2p.solve_reference(*args, torch.bfloat16),
+                    TOL_BF16_TRAINED)
+        precision_control(label, args, TOL_BF16_TRAINED)
+
+        walked = (ep.root_bid, ep.root_player, ep.beliefs)
+        args = main_args(CHECK_ITERS, walked)
+        ties = snap_diff(grid2p.solve(*args, torch.bfloat16),
+                         grid2p.solve_reference(*args, torch.bfloat16)
+                         ) > LANE_TOL
+        share = float(ties.float().mean())
+        print(f"{kernel} walked episodes: B={B} iters={CHECK_ITERS} "
+              f"{int(ties.sum())} lanes with exact value ties (share "
+              f"{share:.3e}, limit {TIE_SHARE:.0e}) "
+              f"{'ok' if share <= TIE_SHARE else 'MISS'}")
+        if share > TIE_SHARE:
+            failures.append(f"{kernel} walked episodes: too many lanes "
+                            f"differ within {CHECK_ITERS} iterations")
+        args = main_args(ITERS, walked)
+        out = grid2p.solve(*args, torch.bfloat16)  # warm
+        torch.cuda.synchronize()
+        reps = 3
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            out = grid2p.solve(*args, torch.bfloat16)
+        end.record()
+        end.synchronize()
+        kernel_ms = start.elapsed_time(end) / reps
+        start.record()
+        ref = grid2p.solve_reference(*args, torch.bfloat16)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        check_1024(args, out, ref, ties)
+        flops = grid2p.mlp_flops_per_lane_iter(
+            game, trainer.cfg.n_hidden, trainer.cfg.n_layers) * B * ITERS
+        net_bytes = sum(p.numel() * (2 if p.dim() == 2 else 4)
+                        for p in trainer.net.parameters())
+        io_bytes = (4 * B * (2 * H + 3 + 2 * H + H * A + A * H * A)
+                    + net_bytes)
+        ops_s = flops / H100_BF16_FLOPS
+        bytes_s = io_bytes / H100_HBM_BYTES_PER_S
+        bound_by = "operations" if ops_s >= bytes_s else "bytes"
+        bound_ms = max(ops_s, bytes_s) * 1e3
+        print(f"kernel {kernel}: {kernel_ms:.3f} ms, plain {plain_ms:.3f} "
+              f"ms, bound {bound_ms:.3f} ms ({bound_by}: {flops:.4e} FLOP "
+              f"at bf16 peak, {io_bytes} B), "
+              f"{flops / (kernel_ms / 1e3):.4e} FLOP/s")
+        measured[kernel] = dict(max_abs_err=err, ms=kernel_ms,
+                                plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by)
+
+    def cfr_check_1024(args, out, ref, ties) -> None:
+        """CFR over the path's iterations on the walked episodes: the
+        statistics of long_check against a control on the CPU."""
+        n = CONTROL_LANES
+        cpu = grid2p.solve_reference(game, args[1],
+                                     *[x[:n].cpu() for x in args[2:6]],
+                                     copy.deepcopy(args[6]).cpu(),
+                                     torch.bfloat16)
+        long_check(f"grid2_cfr bf16 main shapes, walked episodes: B={B} "
+                   f"iters={ITERS} (ties left out; control on {n} lanes)",
+                   out, ref, grid2p.Grid2Outputs(*(x[:n] for x in ref)), cpu,
+                   keys=("rvm_mean", "rvm_max"), keep=~ties,
+                   keep_part=~ties[:n])
+
+    def fp_check_1024(args, out, ref, ties) -> None:
+        """FP over the path's iterations on the walked episodes: its
+        iterates do not drift, so FP_LONG_LIMIT holds with no control
+        behind it."""
+        got = lane_stats(out, ref, ~ties)
+        ok = finite(out) and all(got[k] <= FP_LONG_LIMIT[k] for k in got)
+        print(f"check grid2_fp bf16 main shapes, walked episodes: B={B} "
+              f"iters={ITERS} (ties left out): "
+              + ", ".join(f"{k}={got[k]:.3e} (limit {FP_LONG_LIMIT[k]:.1e})"
+                          for k in got) + f" {'ok' if ok else 'MISS'}")
+        if not ok:
+            failures.append("kernel check grid2_fp main shapes, 1024 "
+                            "iterations")
+
+    cfr_trainer = None
+    if "cfr-selfplay" in phases or "cfr-shapes" in phases:
+        cfr_trainer = selfplay("cfr-selfplay", cfr(ITERS), epochs=2)
+        lap("cfr-selfplay")
+    if "cfr-shapes" in phases:
+        shapes("grid2_cfr", cfr, cfr_trainer, cfr_check_1024)
+        lap("cfr-shapes")
+
+    # ------------------------------------- 6. evaluation at the protocol
+    def exploit_at(reports, repeats):
+        return next(r["exploitability"] for r in reports
+                    if r["repeats"] == repeats)
+
+    def evaluate(solver: str) -> None:
+        cell = EVAL_CELLS[solver]
+        sub = (cfr if solver == "cfr" else fp)(ITERS)
+        kernel = grid2p.kernel_name(sub)
+        value_fn, net = recursive_eval._load_net(str(ROOT / cell["ckpt"]),
+                                                 game, "cuda")
+        reset_counts()
+        grid2p.solve.events = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = recursive_eval.run_eval(
+            game, sub, value_fn, subgame_iters=ITERS,
+            num_repeats=EVAL_REPEATS, mdp_depth=2, dtype=torch.float32,
+            net_name=cell["ckpt"], engine="kernel", net=net, device="cuda")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        events, grid2p.solve.events = grid2p.solve.events, None
+        kernel_s = sum(s.elapsed_time(e) for _, s, e in events) / 1e3
+        print(f"eval {solver}: 1x4f, {cell['ckpt']}, linear "
+              f"{solver.upper()} {ITERS} iters x {EVAL_REPEATS} repeats, "
+              f"depth-2 subgames, kernel engine, "
+              f"{res['net_compute_dtype']} MLP, f32 solve")
+        n = read_counts(f"eval {solver}", kernel)
+        if n != len(events):
+            failures.append(f"eval {solver}: {n} launches, {len(events)} "
+                            "timed")
+        # The full-tree solve alone, timed apart (run_eval has run the
+        # same solve): what is left of the wall time is the recursion's
+        # host bookkeeping, transfers and the reports.
+        t0 = time.perf_counter()
+        full_strategy, _, _ = recursive_eval.full_solve(
+            game, sub, torch.float32, progress=False,
+            collect_iterates=sub.use_cfr, device="cuda")
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        full_tree = res["exploitability"]["full_tree"]
+        reports = res["sampled_reports"]
+        print(f"  full_tree: {full_tree:.6f} (JAX package, f32 on a TPU: "
+              f"{cell['full_tree']:.6f}); immediate regrets: "
+              f"{res['immediate_regrets']}")
+        for r in reports:
+            print(f"  repeats {r['repeats']:5d}: exploitability "
+                  f"{r['exploitability']:.6f} (e0 {r['e0']:.6f}, e1 "
+                  f"{r['e1']:.6f}) ev_full {r['ev_full']:.6f}")
+        print(f"  {n} launches of {kernel}, kernel {kernel_s:.2f} s (CUDA "
+              f"events), wall {wall_s:.2f} s, of which the full-tree "
+              f"solve about {full_s:.2f} s (timed apart): host and other "
+              f"device work {wall_s - kernel_s - full_s:.2f} s "
+              f"({(wall_s - kernel_s - full_s) / wall_s:.1%} of the wall)")
+        lo, hi = (x * cell["full_tree"] for x in FULL_TREE_BAND[solver])
+        if not lo <= full_tree <= hi:
+            failures.append(f"eval {solver}: full_tree {full_tree} outside "
+                            f"[{lo}, {hi}]")
+        golden = json.loads((ROOT / GOLDEN[solver]).read_text())
+        # The fixtures' implementation rounds win probabilities through
+        # float32, and FP's ties follow that rounding: so must the context.
+        ctx = SolverContext(game=game, tree=unroll_tree(game),
+                            dtype=torch.float64, device="cuda",
+                            terminal_f32_parity=True)
+        solver_g = build_solver(ctx, sub.replace(max_depth=10**6))
+        root = RootCtx.concrete(ctx.tree, "cuda")
+        state = solver_g.init(root, exploitability.uniform_beliefs(
+            game, torch.float64, "cuda"))
+        trajectory = []
+        for it in range(golden["num_iters"]):
+            state = solver_g.step(state, it % 2, root)
+            if ((it + 1) & it) == 0:
+                trajectory.append(exploitability.compute_exploitability(
+                    ctx, solver_g.average_strategy(state, root)))
+        worst = max(abs(t - g) - GOLDEN_RTOL * abs(g)
+                    for t, g in zip(trajectory, golden["exploitability"]))
+        ok = (len(trajectory) == len(golden["exploitability"])
+              and worst <= GOLDEN_ATOL)
+        print(f"  full tree in f64, {golden['num_iters']} iterations, "
+              f"against {GOLDEN[solver]}: exploitability "
+              f"{[round(t, 9) for t in trajectory]}, largest excess "
+              f"over rtol {worst:.3e} limit {GOLDEN_ATOL:.0e} "
+              f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            failures.append(f"eval {solver}: full-tree trajectory differs "
+                            "from the golden fixture")
+        # The zero-net control through the same kernels (no MLP).
+        reset_counts()
+        _, zero_reports = recursive_eval.sampled_eval(
+            game, sub, zero_value_fn(game), ZERO_NET_REPEATS, full_strategy,
+            dtype=torch.float32, progress=False, engine="kernel",
+            device="cuda")
+        read_counts(f"eval {solver} zero net", kernel)
+        zero = zero_reports[-1]["exploitability"]
+        last = reports[-1]["exploitability"]
+        at64 = exploit_at(reports, ZERO_NET_REPEATS)
+        lo = BAND_LO * min(cell["jax_kernel_bf16"], cell["jax_grid_f32"])
+        hi = BAND_HI * max(cell["jax_kernel_bf16"], cell["jax_grid_f32"])
+        ok = math.isfinite(last) and last < zero and at64 < zero
+        in_band = lo <= last <= hi
+        print(f"  zero net at {ZERO_NET_REPEATS} repeats: {zero:.6f}; "
+              f"trained net {at64:.6f} at {ZERO_NET_REPEATS}, {last:.6f} "
+              f"at {EVAL_REPEATS} {'ok' if ok else 'MISS'}; band "
+              f"[{lo:.6f}, {hi:.6f}] around the JAX package's "
+              f"{cell['jax_kernel_bf16']:.6f} (kernel, bf16) and "
+              f"{cell['jax_grid_f32']:.6f} (grid, f32) "
+              f"{'ok' if in_band else 'MISS'}")
+        if not ok:
+            failures.append(f"eval {solver}: trained net not below the "
+                            "zero net")
+        if not in_band:
+            failures.append(f"eval {solver}: exploitability {last} outside "
+                            f"[{lo}, {hi}]")
+
+    if "eval" in phases:
+        for solver in EVAL_CELLS:
+            evaluate(solver)
+            lap(f"eval-{solver}")
+
+    # ---------------------------- 7. the check that does not drift
+    class ReferenceFrontierSolver(recursive.Grid2FrontierSolver):
+        """The kernel engine with the plain version in the kernel's
+        place, on the card."""
+
+        def _solve_chunk(self, bids, players, beliefs, stops):
+            return grid2p.solve_reference(
+                self.game, self.params,
+                torch.as_tensor(bids, device=dev),
+                torch.as_tensor(players, device=dev),
+                torch.as_tensor(beliefs, dtype=torch.float32, device=dev),
+                torch.as_tensor(stops, device=dev), self.net,
+                torch.bfloat16)
+
+    def exploit_check(solver: str) -> None:
+        cell = EVAL_CELLS[solver]
+        sub = (cfr if solver == "cfr" else fp)(ITERS)
+        value_fn, net = recursive_eval._load_net(str(ROOT / cell["ckpt"]),
+                                                 game, "cuda")
+        got = {}
+        for name, cls in (("kernel", recursive.Grid2FrontierSolver),
+                          ("plain", ReferenceFrontierSolver)):
+            fsolver = cls(game, sub, torch.float32, None, engine="kernel",
+                          net=net, device="cuda")
+            _, reports = recursive_eval.sampled_eval(
+                game, sub, value_fn, EXPLOIT_REPEATS, None,
+                dtype=torch.float32, progress=False, device="cuda",
+                fsolver=fsolver)
+            got[name] = reports[-1]
+        k, p = got["kernel"], got["plain"]
+        rel = abs(k["exploitability"] - p["exploitability"]) / p[
+            "exploitability"]
+        ok = math.isfinite(rel) and rel <= EXPLOIT_RTOL[solver]
+        print(f"check exploitability {solver}: {EXPLOIT_REPEATS} repeats x "
+              f"{ITERS} iters, bf16: kernel {k['exploitability']:.6f} "
+              f"(e0 {k['e0']:.6f}, e1 {k['e1']:.6f}), plain on the card "
+              f"{p['exploitability']:.6f} (e0 {p['e0']:.6f}, e1 "
+              f"{p['e1']:.6f}), relative diff {rel:.3e} limit "
+              f"{EXPLOIT_RTOL[solver]:.1e} {'ok' if ok else 'MISS'}")
+        if not ok:
+            failures.append(f"exploitability check {solver}")
+
+    if "exploit-check" in phases:
+        for solver in EVAL_CELLS:
+            exploit_check(solver)
+        lap("exploit-check")
+
+    # -------------------------------------- 8. FP self-play and shapes
+    if "fp-selfplay" in phases:
+        fp_trainer = selfplay("fp-selfplay", fp(ITERS), epochs=1)
+        shapes("grid2_fp", fp, fp_trainer, fp_check_1024)
+        lap("fp-selfplay")
+
     print(f"phase host seconds: {phase_s}")
-    net_bytes = sum(p.numel() * (2 if p.dim() == 2 else 4)
-                    for p in trainer.net.parameters())
-    io_bytes = 4 * B * (2 * H + 3 + 2 * H + H * A + A * H * A) + net_bytes
-    bound_s = max(flops / H100_BF16_FLOPS, io_bytes / H100_HBM_BYTES_PER_S)
-    bound_by = ("operations" if flops / H100_BF16_FLOPS
-                >= io_bytes / H100_HBM_BYTES_PER_S else "bytes")
-    print(f"kernel grid2_cfr: {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound_s * 1e3:.3f} ms ({bound_by}: {flops:.4e} FLOP at "
-          f"bf16 peak, {io_bytes} B), {flops / (kernel_ms / 1e3):.4e} FLOP/s")
-
     if failures:
         fail("; ".join(failures))
+    if not whole:
+        print(f"partial run (phases {phases}): no result line")
+        return 0
     print(json.dumps({"kernels": [{
-        "name": "grid2_cfr",
+        "name": kernel,
         "route": "cuda",
         "source": "rebel_tpu_torch/kernels/grid2_cfr.cu",
-        "replaces": "rebel_tpu/solving/grid2p.py:844",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_s * 1e3,
-        "bound_by": bound_by,
+        "replaces": replaces,
+        "launches": launches[kernel],
+        **measured[kernel],
         "library_ms": None,
-    }]}))
+    } for kernel, replaces in (
+        ("grid2_cfr", "rebel_tpu/solving/grid2p.py:844"),
+        ("grid2_fp", "rebel_tpu/solving/grid2p.py:554"),
+    )]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

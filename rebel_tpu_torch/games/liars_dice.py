@@ -59,10 +59,25 @@ class LiarsDice:
         both players' beliefs."""
         return 2 + self.num_actions + 2 * self.num_hands
 
+    @property
+    def max_depth(self) -> int:
+        """Upper bound on the depth of the game tree."""
+        return 1 + self.num_actions
+
     def unpack_action(self, action: int) -> tuple[int, int]:
         """(quantity, face) of a bid action."""
         assert 0 <= action < self.liar_call
         return 1 + action // self.num_faces, action % self.num_faces
+
+    def bid_range(self, last_bid: int) -> tuple[int, int]:
+        """Legal actions as ``[lo, hi)`` after ``last_bid``: the opening
+        move may not be a liar call, any later move may."""
+        if last_bid == INITIAL_ACTION:
+            return 0, self.num_actions - 1
+        return last_bid + 1, self.num_actions
+
+    def is_terminal(self, last_bid: int) -> bool:
+        return last_bid == self.liar_call
 
     def hand_to_dice(self, hand: int) -> list[int]:
         dice = []

@@ -11,6 +11,8 @@ Layout correspondence (flax kernels are ``[in, out]``, torch weights
 
 from __future__ import annotations
 
+import pickle
+
 import numpy as np
 import torch
 
@@ -96,4 +98,23 @@ def load_net2(path, game: LiarsDice, device="cuda") -> CFVNet:
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if "state_dict" in sd:
         sd = sd["state_dict"]
+    return net_from_state_dict(sd, game).to(device)
+
+
+def load_flax_params(path) -> dict:
+    """A ``.params`` export of the JAX trainer: a plain pickle of the flax
+    parameter tree as numpy arrays (no JAX needed to read it).  Unpickling
+    runs code from the file: load only checkpoints you trust, such as this
+    repo's own under ``results/``."""
+    with open(path, "rb") as f:
+        params = pickle.load(f)
+    if not (isinstance(params, dict) and "params" in params):
+        raise ValueError(f"{path} is not a flax parameter export")
+    return params
+
+
+def load_params_net(path, game: LiarsDice, device="cuda") -> CFVNet:
+    """The :class:`CFVNet` of a ``.params`` export, its sizes read off the
+    arrays."""
+    sd = from_flax(load_flax_params(path))
     return net_from_state_dict(sd, game).to(device)

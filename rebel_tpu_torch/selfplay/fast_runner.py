@@ -1,7 +1,8 @@
 """Depth-2 self-play engine around the fused CUDA solve.
 
 Counterpart of ``FastPallasEngine`` in ``rebel_tpu/selfplay/fast_runner.py``.
-One ``batch_step`` solves every lane's subgame in one kernel launch
+One ``batch_step`` solves every lane's subgame, by CFR or by fictitious
+play, in one kernel launch
 (:func:`rebel_tpu_torch.solving.grid2p.solve`), then walks each lane one
 or two actions forward from the policy at its stop iteration.  The walk
 is split in two so that a test can feed the reference's random draws:
@@ -162,8 +163,9 @@ class FastCudaEngine:
 
     def __post_init__(self):
         sub = self.cfg.subgame_params
-        if sub.max_depth != 2 or not sub.use_cfr:
-            raise ValueError("FastCudaEngine runs depth-2 CFR subgames")
+        if sub.max_depth != 2:
+            raise ValueError("FastCudaEngine runs depth-2 subgames (CFR or "
+                             f"fictitious play), not depth {sub.max_depth}")
 
     def solve(self, eps: EpisodeState, t_stop: torch.Tensor, net):
         B = eps.root_bid.shape[0]

@@ -1,7 +1,8 @@
-"""Batch-last depth-2 CFR solver in plain PyTorch.
+"""Batch-last depth-2 CFR and fictitious-play solver in plain PyTorch.
 
 Port of ``rebel_tpu/solving/grid2b.py`` (``init``/``step_cfr``/
-``sampling_strategy``).  The subgame batch ``B`` is the trailing axis of
+``step_fp``/``sampling_strategy``/``average_strategy``), in float32 or
+float64.  The subgame batch ``B`` is the trailing axis of
 every tensor:
 
 * root tensors    ``[H, A, B]``
@@ -26,6 +27,7 @@ import torch
 from rebel_tpu_torch.games.liars_dice import INITIAL_ACTION, LiarsDice
 from rebel_tpu_torch.solving.core import (
     cfr_discounts,
+    first_max,
     normalize_safe,
     reach_eps,
     regret_eps,
@@ -63,7 +65,7 @@ class RootCtxB(NamedTuple):
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Grid2BatchSolver:
-    """Depth-2 CFR over an explicit trailing batch axis."""
+    """Depth-2 CFR or FP over an explicit trailing batch axis."""
 
     game: LiarsDice
     params: SubgameSolvingParams
@@ -309,17 +311,100 @@ class Grid2BatchSolver:
             beliefs=state.beliefs,
         )
 
+    # ------------------------------------------------------------- FP step
+    def step_fp(self, state: Grid2BState, traverser: int, root: RootCtxB):
+        """One fictitious-play iteration: the traverser best-responds to
+        the average policy (ties to the lowest action), and its
+        belief-weighted response is added to its strategy sums, which
+        then decay when ``linear_update``."""
+        p = self.params
+        dt = self.dtype
+        A = self.game.num_actions
+        liar = self.game.liar_call
+        dev = state.beliefs.device
+        m0b = root.mask  # [A, B] bool
+        m0 = m0b.to(dt)
+        m1b = self.m1[:, None, :, None] & m0b[:, None, None, :]  # [A1,1,A2,B]
+
+        avg0, avg1 = self.average_strategy(state, root)
+        val_liar1, val2 = self._leaf_values(
+            traverser, root, state.beliefs, avg0, avg1
+        )
+        neg = float("-inf")
+        root_is_trav = (root.player == traverser)[None, None, :]
+        lvl1_is_trav = ~root_is_trav
+
+        q2 = val2.transpose(1, 2)  # [A1, H, A2, B]
+        has1 = m1b.any(2)  # [A1, 1, B]
+        v1_max, br1 = first_max(torch.where(m1b, q2, neg), 2)
+        v1_max = torch.where(has1, v1_max, 0.0)  # [A1, H, B]
+        br1 = torch.where(has1[:, :, None, :], br1.to(dt), 0.0)
+        V1 = torch.where(lvl1_is_trav, v1_max, val2.sum(1))
+        is_liar_row = (torch.arange(A, device=dev) == liar)[:, None, None]
+        V1 = torch.where(is_liar_row, val_liar1[None], V1)
+
+        V1_t = V1.transpose(0, 1)  # [H, A1, B]
+        v0_max, br0 = first_max(torch.where(m0b[None], V1_t, neg), 1)
+        br0 = br0.to(dt)
+        v0_sum = (V1 * m0[:, None, :]).sum(0)
+        V0 = torch.where(root_is_trav[0], v0_max, v0_sum)
+
+        num_update = float(sum(state.num_steps) // 2 + 1)
+        alpha = torch.tensor(
+            2.0 / (num_update + 1.0) if p.linear_update else 1.0 / num_update,
+            dtype=dt,
+        )
+        rvm = state.root_values_means.clone()
+        rvm[traverser] = rvm[traverser] + (V0 - rvm[traverser]) * alpha
+
+        decay = torch.tensor(
+            (num_update + 1.0) / (num_update + 2.0) if p.linear_update
+            else 1.0,
+            dtype=dt,
+        )
+        bel_trav = state.beliefs[traverser]  # [H, B]
+        w0 = bel_trav[:, None, :] * br0
+        sum0 = torch.where(root_is_trav, (state.sum0 + w0) * decay,
+                           state.sum0)
+        last0 = torch.where(root_is_trav, w0, state.last0)
+        w1 = bel_trav[None, :, None, :] * br1
+        sum1 = torch.where(lvl1_is_trav[None], (state.sum1 + w1) * decay,
+                           state.sum1)
+        last1 = torch.where(lvl1_is_trav[None], w1, state.last1)
+        steps = list(state.num_steps)
+        steps[traverser] += 1
+        return Grid2BState(
+            regrets0=state.regrets0, sum0=sum0, last0=last0,
+            regrets1=state.regrets1, sum1=sum1, last1=last1,
+            root_values_means=rvm, num_steps=tuple(steps),
+            beliefs=state.beliefs,
+        )
+
+    # ------------------------------------------------------------- common
     def step(self, state: Grid2BState, traverser: int, root: RootCtxB):
-        if not self.params.use_cfr:
-            raise NotImplementedError(
-                "fictitious play is not ported yet; use_cfr=True only"
-            )
-        return self.step_cfr(state, traverser, root)
+        if self.params.use_cfr:
+            return self.step_cfr(state, traverser, root)
+        return self.step_fp(state, traverser, root)
 
     def sampling_strategy(self, state: Grid2BState, root: RootCtxB):
-        """The CFR sampling policy is the last iterate."""
-        if not self.params.use_cfr:
-            raise NotImplementedError(
-                "fictitious play is not ported yet; use_cfr=True only"
-            )
-        return state.last0, state.last1
+        """The policy episodes are sampled from: CFR's last iterate, FP's
+        average."""
+        if self.params.use_cfr:
+            return state.last0, state.last1
+        return self.average_strategy(state, root)
+
+    def average_strategy(self, state: Grid2BState, root: RootCtxB):
+        """The strategy sums (plus the last response for optimistic FP)
+        normalised over legal actions; rows without mass stay zero."""
+        dt = self.dtype
+        m0 = root.mask.to(dt)
+        m1e = self.m1.to(dt)[:, None, :, None] * m0[:, None, None, :]
+        optimistic = not self.params.use_cfr and self.params.optimistic
+        n0 = (state.sum0 + state.last0 if optimistic else state.sum0)
+        n1 = (state.sum1 + state.last1 if optimistic else state.sum1)
+        n0 = n0 * m0[None]
+        n1 = n1 * (m1e > 0)
+        d0 = n0.sum(1, keepdim=True)
+        d1 = n1.sum(2, keepdim=True)
+        return (n0 / torch.where(d0 > 0, d0, 1.0),
+                n1 / torch.where(d1 > 0, d1, 1.0))

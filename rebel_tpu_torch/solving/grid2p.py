@@ -1,4 +1,5 @@
-"""The whole depth-2 CFR subgame solve, as one CUDA kernel on the card.
+"""The whole depth-2 subgame solve, CFR or fictitious play, as one CUDA
+kernel on the card.
 
 Counterpart of ``rebel_tpu/solving/grid2p.py`` (``Grid2PallasSolver``).
 Two functions share one contract:
@@ -6,14 +7,17 @@ Two functions share one contract:
 * :func:`solve_reference`: the plain PyTorch version (the batch-last
   solver of :mod:`rebel_tpu_torch.solving.grid2b` plus the stop-iteration
   snapshot scan), on any device;
-* :func:`solve`: launches ``kernels/grid2_cfr.cu`` for CUDA tensors and
-  takes the plain version only for CPU tensors.
+* :func:`solve`: launches ``kernels/grid2_cfr.cu`` for CUDA tensors (its
+  CFR instantiation ``grid2_cfr`` when ``params.use_cfr``, else its
+  fictitious-play instantiation ``grid2_fp``) and takes the plain version
+  only for CPU tensors.
 
 Inputs: ``bids/players/t_stop [B]`` ints, ``beliefs [B, 2, H]``, a
 :class:`~rebel_tpu_torch.nets.cfv_net.CFVNet` or ``None`` (zero leaf
 values).  Outputs: ``rvm [B, 2, H]`` running mean of the root values,
-``snap0 [B, H, A]`` and ``snap1 [B, A, H, A]`` the sampling policy at each
-lane's stop iteration ``t_stop`` (taken before that iteration's update;
+``snap0 [B, H, A]`` and ``snap1 [B, A, H, A]`` the sampling policy (CFR:
+the current iterate; FP: the average policy) at each lane's stop
+iteration ``t_stop`` (taken before that iteration's update;
 ``t_stop == num_iters`` takes the final policy).
 
 Both follow the fused kernel's numerics, not grid2b's: with
@@ -125,11 +129,6 @@ def kernel_mlp(net: CFVNet, net_compute_dtype=torch.float32):
 
 
 def _check_inputs(game, params, bids, players, beliefs, t_stop):
-    if not params.use_cfr:
-        raise NotImplementedError(
-            "the fused solve is ported for CFR only (use_cfr=True); "
-            "fictitious play is the next slice"
-        )
     if params.max_depth != 2:
         raise ValueError("the fused solve is for depth-2 subgames")
     B = bids.shape[0]
@@ -143,21 +142,19 @@ def _check_inputs(game, params, bids, players, beliefs, t_stop):
 
 
 @torch.no_grad()
-def solve_reference(game: LiarsDice, params: SubgameSolvingParams,
-                    bids: torch.Tensor, players: torch.Tensor,
-                    beliefs: torch.Tensor, t_stop: torch.Tensor,
-                    net: CFVNet | None = None,
-                    net_compute_dtype: torch.dtype = torch.float32
-                    ) -> Grid2Outputs:
-    """Plain PyTorch version of the fused solve (see module doc)."""
+def solve_loop(game: LiarsDice, params: SubgameSolvingParams,
+               bids: torch.Tensor, players: torch.Tensor,
+               beliefs: torch.Tensor, t_stop: torch.Tensor, mlp=None,
+               dtype: torch.dtype = torch.float32) -> Grid2Outputs:
+    """The batch-last solver run for ``num_iters`` iterations in
+    ``dtype``, with the sampling policy of every lane taken at its stop
+    iteration.  ``mlp`` is the value net as ``x [Q, N] -> [H, N]``
+    (``None``: zero leaf values)."""
     _check_inputs(game, params, bids, players, beliefs, t_stop)
-    solver = Grid2BatchSolver(
-        game=game, params=params, dtype=torch.float32,
-        mlp=None if net is None else kernel_mlp(net, net_compute_dtype),
-        device=beliefs.device,
-    )
+    solver = Grid2BatchSolver(game=game, params=params, dtype=dtype, mlp=mlp,
+                              device=beliefs.device)
     root = RootCtxB.of(game, bids.long(), players.long())
-    state = solver.init(root, beliefs.float().permute(1, 2, 0))
+    state = solver.init(root, beliefs.to(dtype).permute(1, 2, 0))
     s0, s1 = solver.sampling_strategy(state, root)
     t = t_stop.long()
     for it in range(params.num_iters):
@@ -176,6 +173,18 @@ def solve_reference(game: LiarsDice, params: SubgameSolvingParams,
     )
 
 
+def solve_reference(game: LiarsDice, params: SubgameSolvingParams,
+                    bids: torch.Tensor, players: torch.Tensor,
+                    beliefs: torch.Tensor, t_stop: torch.Tensor,
+                    net: CFVNet | None = None,
+                    net_compute_dtype: torch.dtype = torch.float32
+                    ) -> Grid2Outputs:
+    """Plain PyTorch version of the fused solve (see module doc)."""
+    return solve_loop(
+        game, params, bids, players, beliefs, t_stop,
+        None if net is None else kernel_mlp(net, net_compute_dtype))
+
+
 @torch.no_grad()
 def solve(game: LiarsDice, params: SubgameSolvingParams,
           bids: torch.Tensor, players: torch.Tensor, beliefs: torch.Tensor,
@@ -184,8 +193,10 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
           lane_block: int = 8) -> Grid2Outputs:
     """The fused solve: one launch of ``kernels/grid2_cfr.cu`` runs all
     ``num_iters`` iterations for CUDA inputs (``B % lane_block == 0``);
-    CPU inputs take :func:`solve_reference`.  Adds one to
-    ``solve.launches`` per kernel launch."""
+    CPU inputs take :func:`solve_reference`.  Adds one per kernel launch
+    to ``solve.launches`` and to ``solve.launches_by_kernel`` under
+    ``"grid2_cfr"`` or ``"grid2_fp"``; while ``solve.events`` is a list,
+    appends a pair of CUDA events around each launch."""
     dev = beliefs.device
     if dev.type == "cpu":
         return solve_reference(game, params, bids, players, beliefs, t_stop,
@@ -242,7 +253,8 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
 
     ints = [B, lane_block, A, H, F, game.total_num_dice, Q, Qpad, n_hidden,
             n_layers, params.num_iters, int(params.linear_update),
-            int(params.dcfr), int(net is not None), int(bf16)]
+            int(params.dcfr), int(net is not None), int(bf16),
+            int(not params.use_cfr), int(params.optimistic)]
     c_ints = (ctypes.c_int * len(ints))(*ints)
     lib = build.load("grid2_cfr")
     _declare(lib)
@@ -257,17 +269,35 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     )
     floats = (ctypes.c_float * 2)(params.dcfr_alpha, params.dcfr_beta)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    events = None
+    if solve.events is not None:
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        events[0].record()
     err = lib.grid2_cfr_launch(ptrs, c_ints, floats, stream)
     if err != 0:
         raise RuntimeError(
-            "grid2_cfr launch failed: "
+            f"{kernel_name(params)} launch failed: "
             + lib.grid2_cfr_error_string(err).decode()
         )
+    if events is not None:
+        events[1].record()
+        solve.events.append((kernel_name(params), *events))
     solve.launches += 1
+    solve.launches_by_kernel[kernel_name(params)] += 1
     return Grid2Outputs(rvm=rvm, snap0=snap0, snap1=snap1)
 
 
+def kernel_name(params: SubgameSolvingParams) -> str:
+    """The instantiation of the fused kernel that solves ``params``."""
+    return "grid2_cfr" if params.use_cfr else "grid2_fp"
+
+
 solve.launches = 0
+solve.launches_by_kernel = {"grid2_cfr": 0, "grid2_fp": 0}
+# Set to a list to collect ``(kernel name, start, end)`` CUDA events around
+# every launch (read the times after a synchronise); None collects nothing.
+solve.events = None
 
 
 def _declare(lib) -> None:

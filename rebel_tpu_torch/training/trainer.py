@@ -1,4 +1,5 @@
-"""Self-play CFR trainer: generation and learning on one card.
+"""Self-play trainer (CFR or fictitious-play subgames): generation and
+learning on one card.
 
 Counterpart of ``rebel_tpu/training/trainer.py`` (single-process path).
 Generation and learning share one live net, so actors always use the

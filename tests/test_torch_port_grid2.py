@@ -170,13 +170,17 @@ def test_solve_on_cpu_takes_plain_version_without_launching():
 
 
 def test_solve_refuses_fictitious_play():
+    """Fictitious play is refused only where CFR is too (a depth other
+    than 2); at depth 2 the fused solve takes it."""
     game = LiarsDice(1, 4)
-    sub = SubgameSolvingParams(num_iters=2, max_depth=2, use_cfr=False)
     beliefs, t_stop = _inputs(game, 1, 2)
-    with pytest.raises(NotImplementedError):
-        grid2p.solve(game, sub, torch.as_tensor(BIDS),
-                     torch.as_tensor(PLAYERS), torch.as_tensor(beliefs),
-                     torch.as_tensor(t_stop))
+    args = (torch.as_tensor(BIDS), torch.as_tensor(PLAYERS),
+            torch.as_tensor(beliefs), torch.as_tensor(t_stop))
+    deep = SubgameSolvingParams(num_iters=2, max_depth=3, use_cfr=False)
+    with pytest.raises(ValueError, match="depth-2"):
+        grid2p.solve(game, deep, *args)
+    out = grid2p.solve(game, deep.replace(max_depth=2), *args)
+    assert all(bool(torch.isfinite(x).all()) for x in out)
 
 
 def test_pseudo_leaf_pairs_match_pallas():

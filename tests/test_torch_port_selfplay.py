@@ -178,10 +178,13 @@ def test_engine_batch_step_composes_draws_solve_and_walk(monkeypatch):
 
 
 def test_engine_refuses_fictitious_play():
-    cfg = RecursiveSolvingParams(subgame_params=SubgameSolvingParams(
-        num_iters=2, use_cfr=False))
-    with pytest.raises(ValueError):
-        FastCudaEngine(cfg=cfg)
+    """Fictitious play is refused only at depths other than 2, as CFR
+    is; the depth-2 engine takes both solvers."""
+    sub = SubgameSolvingParams(num_iters=2, use_cfr=False, max_depth=3)
+    with pytest.raises(ValueError, match="depth-2"):
+        FastCudaEngine(cfg=RecursiveSolvingParams(subgame_params=sub))
+    FastCudaEngine(cfg=RecursiveSolvingParams(
+        subgame_params=sub.replace(max_depth=2)))
 
 
 # ------------------------------------------------ (e) draws in distribution
