@@ -26,6 +26,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 KERNEL = "rebel_tpu_torch/kernels/grid2_cfr.cu"
 FP_PHASES = "fp-checks,exploit-check,fp-selfplay"
 CFR_PHASES = "exploit-check"
+KNOB_PHASES = "knob-checks"
 
 # name: (line of the kernel, its replacement, phases that should catch it)
 MUTANTS = {
@@ -75,6 +76,12 @@ MUTANTS = {
         "pos_d = neg_d = it >= 16 ? (ns + 1.0f) / (ns + 2.0f) "
         ": ns / (ns + 1.0f);",
         CFR_PHASES),
+    # The two-group CFR kernel: the second group of warps reads the first
+    # group's stop iterations (the one-group kernels are unchanged by it).
+    "il2-tstop": (
+        "s_tstop[l] = p.t_stop[lane0 + l];",
+        "s_tstop[l] = p.t_stop[blockIdx.x * p.LB + l];",
+        KNOB_PHASES),
 }
 
 

@@ -8,8 +8,8 @@ an H100, ``sm_90a``).  It
 
 1. prints the card's name and power limit and builds the fused depth-2
    solve (``rebel_tpu_torch/kernels/grid2_cfr.cu``: the CFR kernel
-   ``grid2_cfr`` and the fictitious-play kernel ``grid2_fp``) with
-   ``nvcc``;
+   ``grid2_cfr``, the fictitious-play kernel ``grid2_fp`` and the
+   two-group CFR kernel ``grid2_cfr_il2``) with ``nvcc``;
 2. ``cfr-checks``: holds ``grid2_cfr`` against its plain PyTorch version
    (``solving.grid2p.solve_reference``) on the card at 1x4f, B=256: f32
    with LayerNorm, f32 without LayerNorm, no net, bf16 with the fast GELU,
@@ -25,9 +25,10 @@ an H100, ``sm_90a``).  It
 5. ``cfr-shapes``: holds ``grid2_cfr`` to its plain version at that path's
    shapes (4 iterations on random states; 1024 iterations on the walked
    episodes), and times both;
-6. ``eval``: evaluates the repo's two trained 1x4f nets at the paper
-   protocol (``eval.recursive_eval.run_eval``: 1024 subgame iterations x
-   1024 repeats, depth-2 subgames, kernel engine, bf16 MLP, f32 solve): linear CFR with ``r4_1x4cfr/epoch990.params`` and linear FP
+6. ``eval``: evaluates the repo's two trained 1x4f nets by the paper
+   protocol (``eval.recursive_eval.run_eval``: 1024 subgame iterations,
+   depth-2 subgames, kernel engine, bf16 MLP, f32 solve) at 256 of its
+   1024 repeats: linear CFR with ``r4_1x4cfr/epoch990.params`` and linear FP
    with ``r5_1x4fp/epoch800.params``, each beside a zero-net control, and
    prints the exploitability by repeat count with the launches, the
    kernel seconds (CUDA events) and the wall seconds;
@@ -38,11 +39,24 @@ an H100, ``sm_90a``).  It
 8. ``fp-selfplay``: burn-in and one epoch of the same trainer with linear
    FP through ``grid2_fp``, then ``grid2_fp`` against its plain version
    at that path's shapes, timed;
-9. prints one ``{"kernels": [...]}`` line with both kernels and
+9. ``knob-checks``: the kernel's options on the card at 1x4f, B=256,
+   against ``solve_reference`` with the same option: every ``gelu`` with
+   f32 and bf16 operands and every ``ablate``, on a net with and without
+   LayerNorm (4 iterations to the absolute limit, 64 by the statistics).
+   Then, on the walked episodes of phase 4 over 64 and 1024 iterations in
+   f32 and bf16: every ``mlp_chunks`` and ``interleave=2`` give the same
+   bits as the default (``torch.equal`` on all three outputs), a value
+   of ``mlp_chunks`` that does not fit raises, and ``grid2_cfr_il2`` is
+   held to its plain version and timed at the self-play path's shapes;
+10. ``bench``: runs the generation benchmark
+   (``python -m rebel_tpu_torch.bench``) at full width: the CFR headline
+   with its FP and no-net sides, ``--interleave 2``, and the three
+   ablations, and prints every JSON line;
+11. prints one ``{"kernels": [...]}`` line with the three kernels and
    ``{"ok": true, "device": {...}}`` as the last line.
 
-The launch counts of both kernels are set to 0 just before each of the
-four paths (4, 6 for each net, 8) and read just after; a kernel that a
+The launch counts of the kernels are set to 0 just before each of the
+five paths (4, 6 for each net, 8, 10) and read just after; a kernel that a
 path should run and did not fails the run.
 
 ``--phases a,b`` runs only the named phases (and the build); such a run
@@ -144,7 +158,11 @@ EVAL_CELLS = {
                full_tree=0.009909, jax_kernel_bf16=0.028013,
                jax_grid_f32=0.036275),
 }
-EVAL_REPEATS = 1024
+# A quarter of the protocol's 1024 repeats (34 launches a net and not
+# 136), so that the script keeps its length while it grows; the whole
+# protocol is `python -m rebel_tpu_torch.eval.eval_all`, and its readings
+# on these nets are in PERF.md.
+EVAL_REPEATS = 256
 # The full-tree exploitability after 1024 iterations, as a band around the
 # JAX package's f32 reading.  FP's is reproducible: within 5%.  CFR's is
 # not: its iterates are chaotic (see above), and the JAX package itself
@@ -158,11 +176,14 @@ FULL_TREE_BAND = {"cfr": (0.5, 5.0), "fp": (0.95, 1.05)}
 GOLDEN = {"cfr": "tests/golden/cfr_linear_1x4.json",
           "fp": "tests/golden/fp_linear_1x4.json"}
 GOLDEN_ATOL, GOLDEN_RTOL = 2e-6, 1e-5
-# The 1024-repeat exploitability must lie between BAND_LO times the lower
-# and BAND_HI times the higher of the JAX package's two readings for the
-# net.  The band is wide because those two readings differ by 1.3x (FP)
-# to 2.9x (CFR) through arithmetic alone; readings and reason in PERF.md.
-BAND_LO, BAND_HI = 0.5, 1.5
+# The exploitability at EVAL_REPEATS must lie between BAND_LO times the
+# lower and BAND_HI times the higher of the JAX package's two 1024-repeat
+# readings for the net.  The band is wide because those two readings
+# differ by 1.3x (FP) to 2.9x (CFR) through arithmetic alone, and wider
+# than it was at 1024 repeats (0.5 and 1.5) because a quarter of the
+# repeats doubles the sampling error: the port read 0.008054 at 256
+# repeats and 0.010000 at 1024 on the CFR net; readings in PERF.md.
+BAND_LO, BAND_HI = 0.4, 1.75
 ZERO_NET_REPEATS = 64
 # The check that does not drift (phase 7): repeats, and the limit on
 # |exploitability(kernel) - exploitability(plain)| relative to the plain
@@ -170,8 +191,23 @@ ZERO_NET_REPEATS = 64
 EXPLOIT_REPEATS = 16
 EXPLOIT_RTOL = {"cfr": 0.10, "fp": 0.02}
 
+# The options' checks (phase 9).  Over LONG_ITERS iterations they hold the
+# MOST_LANES quantile of the lanes' rvm diffs, not the mean and the max, to
+# MOST_LANES_TOL: a few times above the correct kernel's readings over 24
+# modes (at most 3.3e-06 in f32 and 1.7e-05 with bf16 operands, while the
+# worst lane reads up to 5e-02; PERF.md); the
+# kernel with "cheaperf" and gelu="exact" must be PRECEDENCE_FACTOR times
+# closer to the plain fast GELU than to the plain exact one; and the values
+# of mlp_chunks held to the default bit for bit are, at the default lane
+# block of 8, some of those that fit, and 1 and 2 at a lane block of 2.
+MOST_LANES = 0.9
+MOST_LANES_TOL = {"f32": 1e-5, "bf16": 1e-4}
+PRECEDENCE_FACTOR = 4
+KNOB_CHUNKS = {8: (4, 7, 28), 2: (1, 2)}
+KNOB_CHUNKS_TOO_LARGE = (1, 2, 3)  # at a lane block of 8
+
 PHASES = ("cfr-checks", "fp-checks", "cfr-selfplay", "cfr-shapes", "eval",
-          "exploit-check", "fp-selfplay")
+          "exploit-check", "fp-selfplay", "knob-checks", "bench")
 
 
 def fail(msg: str) -> None:
@@ -217,7 +253,7 @@ def main() -> int:
     failures: list[str] = []
     phase_s: dict[str, float] = {}  # host seconds per phase
     mark = time.perf_counter()
-    KERNELS = ("grid2_cfr", "grid2_fp")
+    KERNELS = grid2p.KERNEL_NAMES
     # Per kernel: launches summed over the paths, and what the shape
     # phases measured.
     launches = dict.fromkeys(KERNELS, 0)
@@ -234,19 +270,21 @@ def main() -> int:
         for k in KERNELS:
             grid2p.solve.launches_by_kernel[k] = 0
 
-    def read_counts(path: str, runs: str, expect: int | None = None) -> int:
-        """Add the path's launches to the totals; the kernel ``runs`` must
-        have been launched (``expect`` times, if given)."""
+    def read_counts(path: str, *runs: str, expect: int | None = None) -> int:
+        """Add the path's launches to the totals; every kernel of ``runs``
+        must have been launched (``expect`` times, if given).  Returns
+        the launches of the first."""
         got = dict(grid2p.solve.launches_by_kernel)
         for k in KERNELS:
             launches[k] += got[k]
         print(f"  launches on this path: {got}")
-        if got[runs] == 0:
-            failures.append(f"{path} launched {runs} no time")
-        elif expect is not None and got[runs] != expect:
-            failures.append(f"{path}: {got[runs]} launches of {runs}, "
-                            f"expected {expect}")
-        return got[runs]
+        for k in runs:
+            if got[k] == 0:
+                failures.append(f"{path} launched {k} no time")
+            elif expect is not None and got[k] != expect:
+                failures.append(f"{path}: {got[k]} launches of {k}, "
+                                f"expected {expect}")
+        return got[runs[0]]
 
     # ------------------------------------------------------------ 1. card
     smi = subprocess.run(
@@ -258,7 +296,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     build.load("grid2_cfr")
-    print(f"kernel build: grid2_cfr.cu (grid2_cfr, grid2_fp) "
+    print(f"kernel build: grid2_cfr.cu ({', '.join(KERNELS)}) "
           f"{build.build_seconds['grid2_cfr']:.1f} s")
     for line in build.build_log("grid2_cfr").splitlines():
         if "registers" in line or "spill" in line:
@@ -337,6 +375,25 @@ def main() -> int:
         if not ok:
             failures.append(f"kernel check {label}")
         return diff
+
+    def most_lanes_check(label, out, ref, tol) -> None:
+        """Over LONG_ITERS iterations with no control behind it: the mean
+        and the max of a drifting solve follow its worst lane (the same
+        arithmetic reads 20 times more at one seed than at another,
+        PERF.md), so hold what most lanes do: the MOST_LANES quantile over
+        lanes of the lane's largest rvm diff to ``tol``, and the share of
+        lanes whose snapshots differ by more than LANE_TOL to its floor."""
+        d = (out.rvm.cpu() - ref.rvm.cpu()).abs().flatten(1).amax(1)
+        q50, q = (float(x) for x in torch.quantile(
+            d, torch.tensor([0.5, MOST_LANES])))
+        lanes = float((snap_diff(out, ref) > LANE_TOL).float().mean())
+        ok = finite(out) and q <= tol and lanes <= LONG_FLOOR["lanes"]
+        print(f"check {label}: lane rvm diff median={q50:.3e} "
+              f"q{MOST_LANES:.2f}={q:.3e} (limit {tol:.1e}) "
+              f"max={float(d.max()):.3e}, lanes={lanes:.3e} (limit "
+              f"{LONG_FLOOR['lanes']:.1e}) {'ok' if ok else 'MISS'}")
+        if not ok:
+            failures.append(f"kernel check {label}")
 
     def tie_check(label, out, ref, tol, share=FP_TIE_SHARE) -> float:
         """FP: every lane within ``tol`` but for a counted share of tie
@@ -526,6 +583,54 @@ def main() -> int:
             failures.append(f"{name}: episode beliefs do not sum to one")
         return trainer
 
+    def time_kernel(args, reps: int = 3, **knobs):
+        """``(ms per launch, outputs)`` of the fused solve in bf16."""
+        out = grid2p.solve(*args, torch.bfloat16, **knobs)  # warm
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            out = grid2p.solve(*args, torch.bfloat16, **knobs)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps, out
+
+    def time_plain(args, **knobs):
+        """``(ms, outputs)`` of one run of the plain version in bf16."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = grid2p.solve_reference(*args, torch.bfloat16, **knobs)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), ref
+
+    def io_bytes(net) -> int:
+        """Bytes one solve of B lanes must move: inputs read once (beliefs,
+        bid, player and stop iteration of every lane, the net), outputs
+        written once."""
+        net_bytes = 0 if net is None else sum(
+            p.numel() * (2 if p.dim() == 2 else 4) for p in net.parameters())
+        return 4 * B * (2 * H + 3 + 2 * H + H * A + A * H * A) + net_bytes
+
+    def report(kernel, trainer, kernel_ms, plain_ms, err) -> None:
+        """Print a kernel's times at the self-play path's shapes beside
+        its bound, and keep them for the ``kernels`` line."""
+        flops = grid2p.mlp_flops_per_lane_iter(
+            game, trainer.cfg.n_hidden, trainer.cfg.n_layers) * B * ITERS
+        ops_s = flops / H100_BF16_FLOPS
+        bytes_s = io_bytes(trainer.net) / H100_HBM_BYTES_PER_S
+        bound_by = "operations" if ops_s >= bytes_s else "bytes"
+        bound_ms = max(ops_s, bytes_s) * 1e3
+        print(f"kernel {kernel}: {kernel_ms:.3f} ms, plain {plain_ms:.3f} "
+              f"ms, bound {bound_ms:.3f} ms ({bound_by}: {flops:.4e} FLOP "
+              f"at bf16 peak, {io_bytes(trainer.net)} B), "
+              f"{flops / (kernel_ms / 1e3):.4e} FLOP/s")
+        measured[kernel] = dict(max_abs_err=err, ms=kernel_ms,
+                                plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by)
+
     def shapes(kernel: str, make_params, trainer, check_1024) -> None:
         """The kernel at its self-play path's shapes (the trained net in
         bf16 at B lanes): held to its plain version over CHECK_ITERS
@@ -567,40 +672,10 @@ def main() -> int:
             failures.append(f"{kernel} walked episodes: too many lanes "
                             f"differ within {CHECK_ITERS} iterations")
         args = main_args(ITERS, walked)
-        out = grid2p.solve(*args, torch.bfloat16)  # warm
-        torch.cuda.synchronize()
-        reps = 3
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            out = grid2p.solve(*args, torch.bfloat16)
-        end.record()
-        end.synchronize()
-        kernel_ms = start.elapsed_time(end) / reps
-        start.record()
-        ref = grid2p.solve_reference(*args, torch.bfloat16)
-        end.record()
-        end.synchronize()
-        plain_ms = start.elapsed_time(end)
+        kernel_ms, out = time_kernel(args)
+        plain_ms, ref = time_plain(args)
         check_1024(args, out, ref, ties)
-        flops = grid2p.mlp_flops_per_lane_iter(
-            game, trainer.cfg.n_hidden, trainer.cfg.n_layers) * B * ITERS
-        net_bytes = sum(p.numel() * (2 if p.dim() == 2 else 4)
-                        for p in trainer.net.parameters())
-        io_bytes = (4 * B * (2 * H + 3 + 2 * H + H * A + A * H * A)
-                    + net_bytes)
-        ops_s = flops / H100_BF16_FLOPS
-        bytes_s = io_bytes / H100_HBM_BYTES_PER_S
-        bound_by = "operations" if ops_s >= bytes_s else "bytes"
-        bound_ms = max(ops_s, bytes_s) * 1e3
-        print(f"kernel {kernel}: {kernel_ms:.3f} ms, plain {plain_ms:.3f} "
-              f"ms, bound {bound_ms:.3f} ms ({bound_by}: {flops:.4e} FLOP "
-              f"at bf16 peak, {io_bytes} B), "
-              f"{flops / (kernel_ms / 1e3):.4e} FLOP/s")
-        measured[kernel] = dict(max_abs_err=err, ms=kernel_ms,
-                                plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by)
+        report(kernel, trainer, kernel_ms, plain_ms, err)
 
     def cfr_check_1024(args, out, ref, ties) -> None:
         """CFR over the path's iterations on the walked episodes: the
@@ -631,7 +706,8 @@ def main() -> int:
                             "iterations")
 
     cfr_trainer = None
-    if "cfr-selfplay" in phases or "cfr-shapes" in phases:
+    if any(p in phases for p in ("cfr-selfplay", "cfr-shapes",
+                                 "knob-checks")):
         cfr_trainer = selfplay("cfr-selfplay", cfr(ITERS), epochs=2)
         lap("cfr-selfplay")
     if "cfr-shapes" in phases:
@@ -810,6 +886,172 @@ def main() -> int:
         shapes("grid2_fp", fp, fp_trainer, fp_check_1024)
         lap("fp-selfplay")
 
+    # ------------------------------------------- 9. the kernel's options
+    def knob_checks(trainer) -> None:
+        f32, bf16 = torch.float32, torch.bfloat16
+        # gelu, ablate, operand type: every gelu with both operand types;
+        # every ablate in f32 under gelu="exact" (where "cheaperf" must win
+        # and change the result) and in bf16 as the benchmark runs it.
+        combos = [(g, "", dt) for g in grid2p.GELUS for dt in (f32, bf16)]
+        combos += [(g, a, dt) for a in grid2p.ABLATIONS[1:]
+                   for g, dt in (("exact", f32), ("auto", bf16))]
+        for k, (gelu, ablate, dtype) in enumerate(combos):
+            for use_ln in (True, False):
+                net, net_dev = fresh_net(2, use_ln, 70 + k)
+                tol = TOL_BF16 if dtype == bf16 else TOL_F32
+                knobs = dict(gelu=gelu, ablate=ablate)
+                for iters in (CHECK_ITERS, LONG_ITERS):
+                    inputs = random_inputs(256, iters, 80 + k)
+                    args = (game, cfr(iters), *inputs, net_dev, dtype)
+                    out = grid2p.solve(*args, **knobs)
+                    ref = grid2p.solve_reference(*args, **knobs)
+                    label = (f"knobs gelu={gelu} ablate={ablate or '-'} "
+                             f"{'bf16' if dtype == bf16 else 'f32'} "
+                             f"{'ln' if use_ln else 'noln-net'}: B=256 "
+                             f"iters={iters}")
+                    if iters == CHECK_ITERS:
+                        short_check(label, out, ref, tol)
+                    else:
+                        most_lanes_check(label, out, ref, MOST_LANES_TOL[
+                            "bf16" if dtype == bf16 else "f32"])
+        # "cheaperf" wins over gelu="exact": in f32 the kernel with both
+        # must land on the plain version with the fast GELU, several times
+        # closer than on the plain version with the exact one.
+        net, net_dev = fresh_net(2, True, 99)
+        args = (game, cfr(CHECK_ITERS), *random_inputs(256, CHECK_ITERS, 98),
+                net_dev, f32)
+        out = grid2p.solve(*args, gelu="exact", ablate="cheaperf")
+        to_fast = max_diff(out, grid2p.solve_reference(*args, gelu="fast"))
+        to_exact = max_diff(out, grid2p.solve_reference(*args, gelu="exact"))
+        ok = PRECEDENCE_FACTOR * to_fast < to_exact
+        print(f"control knobs cheaperf with gelu=exact in f32: max_abs_diff "
+              f"to the plain fast GELU {to_fast:.3e}, to the plain exact "
+              f"GELU {to_exact:.3e}, must be {PRECEDENCE_FACTOR}x apart "
+              f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            failures.append("cheaperf does not win over gelu=exact")
+        lap("knob-checks: options against the plain version")
+
+        # Every mlp_chunks and interleave=2 against the default, bit for
+        # bit, on the walked episodes with the trained net.
+        ep = trainer.episodes
+        walked = (ep.root_bid, ep.root_player, ep.beliefs)
+        gen = torch.Generator(dev).manual_seed(11)
+
+        def same_bits(label, out, base, lanes=B) -> None:
+            ok = finite(out) and all(torch.equal(x, y[:lanes])
+                                     for x, y in zip(out, base))
+            diff = max_diff(out, [y[:lanes] for y in base])
+            print(f"check {label}: bit-identical to the default "
+                  f"(max_abs_diff={diff:.3e}) {'ok' if ok else 'MISS'}")
+            if not ok:
+                failures.append(f"kernel check {label}")
+
+        for iters in (LONG_ITERS, ITERS):
+            t_stop = torch.randint(0, iters + 1, (B,), device=dev,
+                                   generator=gen)
+            args = (game, cfr(iters), *walked, t_stop, trainer.net)
+            for dtype in (f32, bf16):
+                name = "bf16" if dtype == bf16 else "f32"
+                base = grid2p.solve(*args, dtype)
+                for lane_block, values in KNOB_CHUNKS.items():
+                    lanes = B if lane_block == 8 else 256
+                    part = (*args[:2], *(x[:lanes] for x in args[2:6]),
+                            args[6])
+                    for chunks in values:
+                        same_bits(
+                            f"knobs mlp_chunks={chunks} lane_block="
+                            f"{lane_block} {name}: B={lanes} iters={iters}",
+                            grid2p.solve(*part, dtype, lane_block=lane_block,
+                                         mlp_chunks=chunks), base, lanes)
+                same_bits(f"knobs interleave=2 {name}: B={B} iters={iters}",
+                          grid2p.solve(*args, dtype, interleave=2), base)
+                same_bits(f"knobs interleave=2 mlp_chunks=4 {name}: B={B} "
+                          f"iters={iters}",
+                          grid2p.solve(*args, dtype, interleave=2,
+                                       mlp_chunks=4), base)
+        main_args = args  # the walked episodes over the path's iterations
+        lap("knob-checks: bit-identity")
+
+        # grid2_cfr_il2 at the self-play path's shapes: against its plain
+        # version over CHECK_ITERS iterations, then timed.  Over 1024
+        # iterations it gives grid2_cfr's bits (above), and grid2_cfr is
+        # held by phase 5.
+        t_stop = torch.randint(0, CHECK_ITERS + 1, (B,), device=dev,
+                               generator=gen)
+        args = (game, cfr(CHECK_ITERS), *random_inputs(B, CHECK_ITERS, 31)[:3],
+                t_stop, trainer.net)
+        err = short_check(
+            f"grid2_cfr_il2 bf16 main shapes: B={B} iters={CHECK_ITERS}",
+            grid2p.solve(*args, bf16, interleave=2),
+            grid2p.solve_reference(*args, bf16, lane_block=8, interleave=2),
+            TOL_BF16_TRAINED)
+
+        # Which mlp_chunks fit a block's shared memory at lane_block 8.
+        print(f"mlp_chunks at lane_block 8, 1x4f (a block may use "
+              f"{grid2p.SMEM_LIMIT} B of shared memory):")
+        for knobs in [dict(mlp_chunks=c) for c in range(1, 29)] + [
+                dict(mlp_chunks=c, interleave=2) for c in (2, 3, 4, 7)]:
+            try:
+                grid2p.solve(*args, bf16, **knobs)
+                fits = "fits"
+            except ValueError as e:
+                fits = str(e)
+            print(f"  {knobs}: {fits}")
+            large = knobs["mlp_chunks"] in KNOB_CHUNKS_TOO_LARGE
+            if "interleave" not in knobs and large == (fits == "fits"):
+                failures.append(f"mlp_chunks={knobs['mlp_chunks']} at "
+                                f"lane_block 8: {fits}")
+
+        args = main_args
+        il1_ms, _ = time_kernel(args)
+        il2_ms, _ = time_kernel(args, interleave=2)
+        il2_again, _ = time_kernel(args, interleave=2)
+        il1_again, _ = time_kernel(args)
+        print(f"grid2_cfr {il1_ms:.3f} and {il1_again:.3f} ms, "
+              f"grid2_cfr_il2 {il2_ms:.3f} and {il2_again:.3f} ms at B={B}, "
+              f"{ITERS} iterations, bf16 (in turns: 1, 2, 2, 1)")
+        plain_ms, _ = time_plain(args, lane_block=8, interleave=2)
+        report("grid2_cfr_il2", trainer, min(il2_ms, il2_again), plain_ms,
+               err)
+
+    if "knob-checks" in phases:
+        knob_checks(cfr_trainer)
+        lap("knob-checks: grid2_cfr_il2 at the main shapes")
+
+    # ---------------------------------------- 10. the generation benchmark
+    if "bench" in phases:
+        from rebel_tpu_torch import bench
+
+        reset_counts()
+        runs = [[],
+                ["--interleave", "2", "--headline-only"]]
+        runs += [["--ablate", a, "--headline-only", "--steps", "2"]
+                 for a in grid2p.ABLATIONS[1:]]
+        lines = []
+        for argv in runs:
+            print(f"bench {' '.join(argv) or '(defaults)'}:")
+            lines += bench.main(["--deadline", "0", *argv])
+        read_counts("bench", *KERNELS)
+        for line in lines:
+            d = line.get("detail", {})
+            if "error" in line or not math.isfinite(line.get("value") or
+                                                    math.nan):
+                failures.append(f"bench: bad line {line}")
+            elif not math.isfinite(d.get("checksum", math.nan)):
+                failures.append(f"bench: non-finite checksum in {line}")
+        full = lines[1]["detail"]
+        nonet_ms = (full["no_net_cfr_kernel_s"] * 1e3
+                    / sum(full["no_net_cfr_launches"].values()))
+        lanes = full["batch"]
+        nonet_bytes = 4 * lanes * (2 * H + 3 + 2 * H + H * A + A * H * A)
+        print(f"bench no-net: kernel {nonet_ms:.3f} ms per launch of {lanes} "
+              f"lanes; bound {nonet_bytes / H100_HBM_BYTES_PER_S * 1e3:.6f} "
+              f"ms (bytes: {nonet_bytes} B at {H100_HBM_BYTES_PER_S:.3e} "
+              f"B/s); no-net share of a CFR solve "
+              f"{nonet_ms / (full['kernel_s'] * 1e3 / full['steps']):.4f}")
+        lap("bench")
+
     print(f"phase host seconds: {phase_s}")
     if failures:
         fail("; ".join(failures))
@@ -827,6 +1069,7 @@ def main() -> int:
     } for kernel, replaces in (
         ("grid2_cfr", "rebel_tpu/solving/grid2p.py:844"),
         ("grid2_fp", "rebel_tpu/solving/grid2p.py:554"),
+        ("grid2_cfr_il2", "rebel_tpu/solving/grid2p.py:762"),
     )]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,19 @@
-"""Depth-2 self-play engine around the fused CUDA solve.
+"""Depth-2 self-play engines and the engine factory.
 
-Counterpart of ``FastPallasEngine`` in ``rebel_tpu/selfplay/fast_runner.py``.
-One ``batch_step`` solves every lane's subgame, by CFR or by fictitious
-play, in one kernel launch
-(:func:`rebel_tpu_torch.solving.grid2p.solve`), then walks each lane one
-or two actions forward from the policy at its stop iteration.  The walk
-is split in two so that a test can feed the reference's random draws:
+Counterpart of ``rebel_tpu/selfplay/fast_runner.py``.  One ``batch_step``
+solves every lane's depth-2 subgame, by CFR or by fictitious play, then
+walks each lane one or two actions forward from the policy at its stop
+iteration.  Two engines share that structure and the walk:
+
+* :class:`FastCudaEngine` (counterpart of ``FastPallasEngine``): the whole
+  solve is one kernel launch
+  (:func:`rebel_tpu_torch.solving.grid2p.solve`);
+* :class:`FastBatchedEngine`: the batch-last solver of
+  :mod:`rebel_tpu_torch.solving.grid2b` in plain PyTorch, on any device.
+
+:func:`make_engine` picks between them and the generic
+:class:`~rebel_tpu_torch.selfplay.runner.SelfPlayEngine`.  The walk is
+split in two so that a test can feed the reference's random draws:
 
 * :func:`draw_stop` and :func:`draw_actions` make every random choice
   (stop iteration, best-response player, explore coin, hands, actions)
@@ -21,6 +29,7 @@ injected.
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import math
 
@@ -37,41 +46,12 @@ from rebel_tpu_torch.solving.core import (
 from rebel_tpu_torch.selfplay.runner import (
     EpisodeState,
     RecursiveSolvingParams,
+    SelfPlayEngine,
     StepOutput,
+    _categorical,
+    _sample_action,
+    draw_stop,
 )
-
-
-def draw_stop(gen: torch.Generator, batch: int, num_iters: int,
-              device) -> torch.Tensor:
-    """Per-lane stop iteration ``t ~ U{0, ..., num_iters}``."""
-    return torch.randint(0, num_iters + 1, (batch,), generator=gen,
-                         device=device)
-
-
-def _categorical(gen: torch.Generator, probs: torch.Tensor) -> torch.Tensor:
-    """One draw per row of unnormalised ``probs [N, K]``.  Rows without
-    mass (a level-1 row after the liar call, whose draw is never used)
-    draw uniformly instead of failing."""
-    has = probs.sum(-1, keepdim=True) > 0
-    probs = torch.where(has, probs, torch.ones_like(probs))
-    return torch.multinomial(probs, 1, generator=gen).squeeze(-1)
-
-
-def _sample_action(gen, cfg: RecursiveSolvingParams, policy: torch.Tensor,
-                   mask: torch.Tensor, bel_actor: torch.Tensor,
-                   explore_ok: torch.Tensor) -> torch.Tensor:
-    """With probability ``random_action_prob`` (for the best-response
-    sampled player) uniform over legal actions, else a hand from the
-    actor's beliefs and then an action from ``policy[hand]``.
-    ``policy [B, H, A]``, ``mask [B, A]``, ``bel_actor [B, H]``."""
-    B = policy.shape[0]
-    coin = torch.rand((B,), generator=gen, device=policy.device)
-    explore = explore_ok & (coin < cfg.random_action_prob)
-    a_uniform = _categorical(gen, mask.to(policy.dtype))
-    hand = _categorical(gen, bel_actor)
-    ar = torch.arange(B, device=policy.device)
-    a_policy = _categorical(gen, policy[ar, hand])
-    return torch.where(explore, a_uniform, a_policy)
 
 
 def draw_actions(gen: torch.Generator, cfg: RecursiveSolvingParams,
@@ -144,28 +124,38 @@ def advance(cfg: RecursiveSolvingParams, ep: EpisodeState, p0: torch.Tensor,
     return new_ep, StepOutput(queries=queries, values=vals, ended=ended)
 
 
+def _depth2_only(cfg: RecursiveSolvingParams, name: str) -> None:
+    depth = cfg.subgame_params.max_depth
+    if depth != 2:
+        raise ValueError(f"{name} runs depth-2 subgames (CFR or fictitious "
+                         f"play), not depth {depth}")
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class FastCudaEngine:
     """Self-play engine whose whole subgame solve runs in one kernel
     launch per ``batch_step`` on the card (the plain version on CPU
-    tensors).  Keeps the CUDA event pairs around the last
-    ``SOLVE_EVENTS`` solves in ``solve_events``, so a caller can read solve
-    times after a synchronise."""
+    tensors).  ``mlp_chunks``, ``gelu``, ``ablate`` and ``interleave`` are
+    the kernel's options (see :mod:`rebel_tpu_torch.solving.grid2p`).
+    Keeps the CUDA event pairs around the last ``SOLVE_EVENTS`` solves in
+    ``solve_events``, so a caller can read solve times after a
+    synchronise."""
 
     SOLVE_EVENTS = 256
 
     cfg: RecursiveSolvingParams
     lane_block: int = 8
     net_compute_dtype: torch.dtype = torch.float32
+    mlp_chunks: int | None = None
+    gelu: str = "auto"
+    ablate: str = ""
+    interleave: int = 1
     solve_events: collections.deque = dataclasses.field(
         default_factory=lambda: collections.deque(
             maxlen=FastCudaEngine.SOLVE_EVENTS))
 
     def __post_init__(self):
-        sub = self.cfg.subgame_params
-        if sub.max_depth != 2:
-            raise ValueError("FastCudaEngine runs depth-2 subgames (CFR or "
-                             f"fictitious play), not depth {sub.max_depth}")
+        _depth2_only(self.cfg, "FastCudaEngine")
 
     def solve(self, eps: EpisodeState, t_stop: torch.Tensor, net):
         B = eps.root_bid.shape[0]
@@ -175,6 +165,8 @@ class FastCudaEngine:
             self.net_compute_dtype,
             # Largest block that divides B (the kernel needs B % LB == 0).
             lane_block=math.gcd(self.lane_block, B),
+            mlp_chunks=self.mlp_chunks, interleave=self.interleave,
+            gelu=self.gelu, ablate=self.ablate,
         )
 
     def batch_step(self, eps: EpisodeState, net, gen: torch.Generator):
@@ -192,3 +184,81 @@ class FastCudaEngine:
             out = self.solve(eps, t, net)
         a1, a2 = draw_actions(gen, self.cfg, eps, out.snap0, out.snap1)
         return advance(self.cfg, eps, out.snap0, out.snap1, out.rvm, a1, a2)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FastBatchedEngine:
+    """Batch-last engine: all iterations of the plain depth-2 solver
+    (:class:`rebel_tpu_torch.solving.grid2b.Grid2BatchSolver`, the lanes
+    in the trailing axis) with the snapshot scan, on the device of the
+    episodes.  The net runs with the module's own numerics (exact GELU,
+    two-pass LayerNorm), wholly in ``net_compute_dtype``; the solve runs in
+    ``dtype``."""
+
+    cfg: RecursiveSolvingParams
+    dtype: torch.dtype = torch.float32
+    net_compute_dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        _depth2_only(self.cfg, "FastBatchedEngine")
+
+    def _mlp(self, net):
+        """``x [Q, N] -> [H, N]`` through ``net`` (``None``: no net)."""
+        if net is None:
+            return None
+        cdt = self.net_compute_dtype
+        if next(net.parameters()).dtype != cdt:
+            net = copy.deepcopy(net).to(cdt)
+        return lambda x: net(x.T.to(cdt)).T
+
+    @torch.no_grad()
+    def batch_step(self, eps: EpisodeState, net, gen: torch.Generator):
+        sub = self.cfg.subgame_params
+        B = eps.root_bid.shape[0]
+        t = draw_stop(gen, B, sub.num_iters, eps.beliefs.device)
+        out = grid2p.solve_loop(self.cfg.game, sub, eps.root_bid,
+                                eps.root_player, eps.beliefs, t,
+                                self._mlp(net), self.dtype)
+        a1, a2 = draw_actions(gen, self.cfg, eps, out.snap0, out.snap1)
+        return advance(self.cfg, eps, out.snap0, out.snap1, out.rvm, a1, a2)
+
+
+ENGINE_KINDS = ("auto", "generic", "fast", "batched", "kernel")
+
+
+def make_engine(cfg: RecursiveSolvingParams, dtype=torch.float32,
+                kind: str = "auto", net_compute_dtype=torch.float32,
+                **kernel_options):
+    """Engine factory.
+
+    ``kind``: ``"generic"`` (:class:`SelfPlayEngine`, any depth),
+    ``"batched"`` (:class:`FastBatchedEngine`), ``"kernel"``
+    (:class:`FastCudaEngine`, the counterpart of the reference's
+    ``"pallas"``; ``kernel_options`` are its ``lane_block``,
+    ``mlp_chunks``, ``gelu``, ``ablate`` and ``interleave``), or ``"auto"``:
+    a depth-2 engine where the depth is 2, else the generic one.  The
+    reference's ``"fast"`` (its batch-first grid solver under ``vmap``) is
+    not ported yet (ROADMAP.md, Queue 1 item 12); until it is, ``"auto"``
+    at depth 2 gives ``"batched"``, which computes the same."""
+    depth2 = cfg.subgame_params.max_depth == 2
+    if kind == "auto":
+        kind = "batched" if depth2 else "generic"
+    if kind not in ENGINE_KINDS:
+        raise ValueError(f"unknown engine kind {kind!r}")
+    if kind != "generic" and not depth2:
+        raise ValueError(f"engine kind {kind!r} requires max_depth == 2")
+    if kernel_options and kind != "kernel":
+        raise ValueError(f"{sorted(kernel_options)} are options of the "
+                         f"'kernel' engine, not of {kind!r}")
+    if kind == "generic":
+        return SelfPlayEngine(cfg=cfg, dtype=dtype)
+    if kind == "fast":
+        raise NotImplementedError(
+            "engine kind 'fast' needs the batch-first grid solver "
+            "(solving/grid2.py), which is not ported yet: ROADMAP.md, "
+            "Queue 1 item 12; 'batched' computes the same")
+    if kind == "batched":
+        return FastBatchedEngine(cfg=cfg, dtype=dtype,
+                                 net_compute_dtype=net_compute_dtype)
+    return FastCudaEngine(cfg=cfg, net_compute_dtype=net_compute_dtype,
+                          **kernel_options)

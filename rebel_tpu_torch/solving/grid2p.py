@@ -8,7 +8,8 @@ Two functions share one contract:
   solver of :mod:`rebel_tpu_torch.solving.grid2b` plus the stop-iteration
   snapshot scan), on any device;
 * :func:`solve`: launches ``kernels/grid2_cfr.cu`` for CUDA tensors (its
-  CFR instantiation ``grid2_cfr`` when ``params.use_cfr``, else its
+  CFR instantiation ``grid2_cfr`` when ``params.use_cfr``, its two-group
+  CFR instantiation ``grid2_cfr_il2`` with ``interleave=2``, else its
   fictitious-play instantiation ``grid2_fp``) and takes the plain version
   only for CPU tensors.
 
@@ -23,9 +24,24 @@ iteration ``t_stop`` (taken before that iteration's update;
 Both follow the fused kernel's numerics, not grid2b's: with
 ``net_compute_dtype=torch.bfloat16`` the matmul operands are rounded to
 bf16 and accumulate in f32, LayerNorm is one-pass (E[x^2] - mu^2) and all
-elementwise math is f32; GELU is the Abramowitz-Stegun erf form in f32 mode
-and the fast polynomial in bf16 mode (the reference kernel's ``gelu="auto"``
-policy, the only one its training runs use).
+elementwise math is f32.  Both take the reference kernel's options:
+
+* ``gelu``: ``"auto"`` (the fast polynomial GELU with bf16 operands, the
+  Abramowitz-Stegun erf form in f32), ``"exact"`` or ``"fast"``;
+* ``ablate``: diagnostics of what the activation and LayerNorm cost:
+  ``"nogelu"`` (no activation), ``"noln"`` (layers with LayerNorm skip
+  its statistics and keep scale and bias), ``"cheaperf"`` (the fast GELU,
+  whatever ``gelu`` says); ``""`` follows ``gelu``;
+* ``mlp_chunks``: the P pseudo-leaf pairs are evaluated in that many
+  groups of ``ceil(P / mlp_chunks)`` pairs; the kernel stages one group's
+  query rows at a time.  Results do not depend on it (in the kernel, bit
+  for bit).  ``None`` takes as many pairs at a time as fill one row tile
+  of the kernel's product;
+* ``interleave``: 2 splits every lane block into two half-blocks that are
+  solved side by side (the kernel: by two groups of warps of one block, so
+  that one half's MLP overlaps the other's update).  CFR with a net only;
+  FP and the no-net mode run as ``interleave=1``.  Per-lane results equal
+  ``interleave=1``.
 """
 
 from __future__ import annotations
@@ -97,12 +113,38 @@ def gelu_fast(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 + 0.5 * (z * poly))
 
 
-def kernel_mlp(net: CFVNet, net_compute_dtype=torch.float32):
+GELUS = ("auto", "exact", "fast")
+ABLATIONS = ("", "nogelu", "noln", "cheaperf")
+# Activations by the kernel's code for them.
+ACTIVATIONS = ("exact", "fast", "identity")
+
+
+def activation(net_compute_dtype, gelu: str = "auto", ablate: str = "") -> str:
+    """The hidden layers' activation, ``"exact"``, ``"fast"`` or
+    ``"identity"``, by the reference's precedence: ``nogelu`` first, then
+    ``cheaperf``, then ``gelu`` (``"auto"``: fast with bf16 operands)."""
+    if gelu not in GELUS:
+        raise ValueError(f"gelu must be one of {GELUS}, not {gelu!r}")
+    if ablate not in ABLATIONS:
+        raise ValueError(f"ablate must be one of {ABLATIONS}, not {ablate!r}")
+    if ablate == "nogelu":
+        return "identity"
+    if ablate == "cheaperf" or gelu == "fast" or (
+            gelu == "auto" and net_compute_dtype == torch.bfloat16):
+        return "fast"
+    return "exact"
+
+
+def kernel_mlp(net: CFVNet, net_compute_dtype=torch.float32,
+               gelu: str = "auto", ablate: str = ""):
     """``x [Q, N] -> [H, N]`` through ``net`` with the kernel's numerics
     (operands in ``net_compute_dtype``, f32 accumulation, one-pass
-    LayerNorm, f32 GELU: the fast polynomial with bf16 operands)."""
+    LayerNorm, f32 activation picked by :func:`activation`; ``noln`` skips
+    the statistics of a layer with LayerNorm and keeps its scale and
+    bias)."""
     bf16 = net_compute_dtype == torch.bfloat16
-    act = gelu_fast if bf16 else gelu_erf
+    act = {"exact": gelu_erf, "fast": gelu_fast,
+           "identity": lambda x: x}[activation(net_compute_dtype, gelu, ablate)]
 
     def rnd(t):
         # bf16 operands, products exact in f32, f32 sums.
@@ -113,12 +155,13 @@ def kernel_mlp(net: CFVNet, net_compute_dtype=torch.float32):
         for lin, ln in net.hidden_layers():
             x = rnd(x) @ rnd(lin.weight.float()).T + lin.bias.float()
             if ln is not None:
-                inv_n = 1.0 / x.shape[-1]
-                mu = x.sum(-1, keepdim=True) * inv_n
-                ex2 = (x * x).sum(-1, keepdim=True) * inv_n
-                var = torch.clamp(ex2 - mu * mu, min=0.0)
-                r = torch.rsqrt(var + 1e-5)
-                x = x * r - mu * r
+                if ablate != "noln":
+                    inv_n = 1.0 / x.shape[-1]
+                    mu = x.sum(-1, keepdim=True) * inv_n
+                    ex2 = (x * x).sum(-1, keepdim=True) * inv_n
+                    var = torch.clamp(ex2 - mu * mu, min=0.0)
+                    r = torch.rsqrt(var + 1e-5)
+                    x = x * r - mu * r
                 x = x * ln.weight.float() + ln.bias.float()
             x = act(x)
         out = net.output
@@ -126,6 +169,35 @@ def kernel_mlp(net: CFVNet, net_compute_dtype=torch.float32):
         return x.T
 
     return mlp
+
+
+def chunked(mlp, mlp_chunks: int, batch: int):
+    """``mlp`` applied to ``x [Q, cells * batch]`` in ``mlp_chunks`` groups
+    of whole cells (a cell is one action pair's ``batch`` columns)."""
+    if mlp_chunks == 1:
+        return mlp
+
+    def run(x: torch.Tensor) -> torch.Tensor:
+        cells = x.shape[1] // batch
+        per = -(-cells // mlp_chunks)
+        return torch.cat([mlp(c) for c in x.split(per * batch, dim=1)], dim=1)
+
+    return run
+
+
+def effective_interleave(params: SubgameSolvingParams, has_net: bool,
+                         interleave: int, lane_block: int | None) -> int:
+    """1 or 2: ``interleave`` where it applies (CFR with a net), else 1.
+    Raises for ``interleave`` other than 1 or 2 and, where 2 applies, for
+    an odd ``lane_block``."""
+    if interleave not in (1, 2):
+        raise ValueError(f"interleave must be 1 or 2, not {interleave}")
+    if interleave == 1 or not (params.use_cfr and has_net):
+        return 1
+    if lane_block is not None and lane_block % 2:
+        raise ValueError(f"interleave=2 splits the lane block in two; "
+                         f"lane_block {lane_block} is odd")
+    return 2
 
 
 def _check_inputs(game, params, bids, players, beliefs, t_stop):
@@ -173,16 +245,54 @@ def solve_loop(game: LiarsDice, params: SubgameSolvingParams,
     )
 
 
+def _check_knobs(params, net, net_compute_dtype, lane_block, mlp_chunks,
+                 interleave, gelu, ablate):
+    """Validate the options; returns ``(activation, groups)``."""
+    act = activation(net_compute_dtype, gelu, ablate)
+    if mlp_chunks is not None and mlp_chunks < 1:
+        raise ValueError(f"mlp_chunks must be at least 1, not {mlp_chunks}")
+    return act, effective_interleave(params, net is not None, interleave,
+                                     lane_block)
+
+
 def solve_reference(game: LiarsDice, params: SubgameSolvingParams,
                     bids: torch.Tensor, players: torch.Tensor,
                     beliefs: torch.Tensor, t_stop: torch.Tensor,
                     net: CFVNet | None = None,
-                    net_compute_dtype: torch.dtype = torch.float32
-                    ) -> Grid2Outputs:
-    """Plain PyTorch version of the fused solve (see module doc)."""
-    return solve_loop(
-        game, params, bids, players, beliefs, t_stop,
-        None if net is None else kernel_mlp(net, net_compute_dtype))
+                    net_compute_dtype: torch.dtype = torch.float32,
+                    lane_block: int | None = None,
+                    mlp_chunks: int | None = None, interleave: int = 1,
+                    gelu: str = "auto", ablate: str = "") -> Grid2Outputs:
+    """Plain PyTorch version of the fused solve (see module doc).  With
+    ``interleave=2`` the first and the second halves of all lane blocks
+    (of the whole batch without ``lane_block``) are solved apart."""
+    B = bids.shape[0]
+    lane_block = lane_block or B
+    _, groups = _check_knobs(params, net, net_compute_dtype, lane_block,
+                             mlp_chunks, interleave, gelu, ablate)
+    mlp = None
+    if net is not None:
+        mlp = kernel_mlp(net, net_compute_dtype, gelu, ablate)
+    if groups == 1:
+        if mlp is not None:
+            mlp = chunked(mlp, mlp_chunks or 1, B)
+        return solve_loop(game, params, bids, players, beliefs, t_stop, mlp)
+    if B % lane_block:
+        raise ValueError(f"batch {B} is not a multiple of lane_block "
+                         f"{lane_block}")
+    halves = torch.arange(B, device=bids.device).view(-1, 2, lane_block // 2)
+    mlp = chunked(mlp, mlp_chunks or 1, B // 2)
+    out = None
+    for g in range(2):
+        idx = halves[:, g].reshape(-1)
+        part = solve_loop(game, params, bids[idx], players[idx],
+                          beliefs[idx], t_stop[idx], mlp)
+        if out is None:
+            out = Grid2Outputs(*(x.new_empty((B, *x.shape[1:]))
+                                 for x in part))
+        for whole, half in zip(out, part):
+            whole[idx] = half
+    return out
 
 
 @torch.no_grad()
@@ -190,20 +300,26 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
           bids: torch.Tensor, players: torch.Tensor, beliefs: torch.Tensor,
           t_stop: torch.Tensor, net: CFVNet | None = None,
           net_compute_dtype: torch.dtype = torch.float32,
-          lane_block: int = 8) -> Grid2Outputs:
+          lane_block: int = 8, mlp_chunks: int | None = None,
+          interleave: int = 1, gelu: str = "auto",
+          ablate: str = "") -> Grid2Outputs:
     """The fused solve: one launch of ``kernels/grid2_cfr.cu`` runs all
     ``num_iters`` iterations for CUDA inputs (``B % lane_block == 0``);
     CPU inputs take :func:`solve_reference`.  Adds one per kernel launch
     to ``solve.launches`` and to ``solve.launches_by_kernel`` under
-    ``"grid2_cfr"`` or ``"grid2_fp"``; while ``solve.events`` is a list,
-    appends a pair of CUDA events around each launch."""
+    :func:`kernel_name`; while ``solve.events`` is a list, appends a pair
+    of CUDA events around each launch.  An ``mlp_chunks`` or ``lane_block``
+    whose staging does not fit a block's shared memory raises."""
     dev = beliefs.device
     if dev.type == "cpu":
         return solve_reference(game, params, bids, players, beliefs, t_stop,
-                               net, net_compute_dtype)
+                               net, net_compute_dtype, lane_block,
+                               mlp_chunks, interleave, gelu, ablate)
     if dev.type != "cuda":
         raise ValueError(f"solve runs on cuda or cpu tensors, not {dev}")
     _check_inputs(game, params, bids, players, beliefs, t_stop)
+    act, groups = _check_knobs(params, net, net_compute_dtype, lane_block,
+                               mlp_chunks, interleave, gelu, ablate)
     from rebel_tpu_torch.kernels import build
 
     A, H, F = game.num_actions, game.num_hands, game.num_faces
@@ -213,6 +329,11 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     if B % lane_block:
         raise ValueError(f"batch {B} is not a multiple of lane_block "
                          f"{lane_block}")
+    n_pairs = len(pseudo_leaf_pairs(game))
+    if mlp_chunks is None:
+        # As many pairs at a time as fill one row tile of the kernel's
+        # product (32 rows for a block, 16 for each of two groups).
+        mlp_chunks = -(-n_pairs // max(1, 32 // lane_block))
     bf16 = net_compute_dtype == torch.bfloat16
     if net_compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("net_compute_dtype must be float32 or bfloat16")
@@ -254,21 +375,25 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     ints = [B, lane_block, A, H, F, game.total_num_dice, Q, Qpad, n_hidden,
             n_layers, params.num_iters, int(params.linear_update),
             int(params.dcfr), int(net is not None), int(bf16),
-            int(not params.use_cfr), int(params.optimistic)]
+            int(not params.use_cfr), int(params.optimistic),
+            ACTIVATIONS.index(act), int(ablate != "noln"), mlp_chunks,
+            groups]
     c_ints = (ctypes.c_int * len(ints))(*ints)
     lib = build.load("grid2_cfr")
     _declare(lib)
     smem = lib.grid2_cfr_smem_bytes(c_ints)
     if smem > SMEM_LIMIT:
         raise ValueError(
-            f"lane_block {lane_block} needs {smem} B of shared memory per "
-            f"block, more than {SMEM_LIMIT}; use a smaller lane_block"
+            f"lane_block {lane_block} with mlp_chunks {mlp_chunks} needs "
+            f"{smem} B of shared memory per block, more than {SMEM_LIMIT}; "
+            f"use a smaller lane_block or more mlp_chunks"
         )
     ptrs = (ctypes.c_void_p * len(keep))(
         *[0 if t is None else t.data_ptr() for t in keep]
     )
     floats = (ctypes.c_float * 2)(params.dcfr_alpha, params.dcfr_beta)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    name = kernel_name(params, net is not None, groups)
     events = None
     if solve.events is not None:
         events = (torch.cuda.Event(enable_timing=True),
@@ -277,24 +402,30 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     err = lib.grid2_cfr_launch(ptrs, c_ints, floats, stream)
     if err != 0:
         raise RuntimeError(
-            f"{kernel_name(params)} launch failed: "
+            f"{name} launch failed: "
             + lib.grid2_cfr_error_string(err).decode()
         )
     if events is not None:
         events[1].record()
-        solve.events.append((kernel_name(params), *events))
+        solve.events.append((name, *events))
     solve.launches += 1
-    solve.launches_by_kernel[kernel_name(params)] += 1
+    solve.launches_by_kernel[name] += 1
     return Grid2Outputs(rvm=rvm, snap0=snap0, snap1=snap1)
 
 
-def kernel_name(params: SubgameSolvingParams) -> str:
-    """The instantiation of the fused kernel that solves ``params``."""
-    return "grid2_cfr" if params.use_cfr else "grid2_fp"
+def kernel_name(params: SubgameSolvingParams, has_net: bool = True,
+                interleave: int = 1) -> str:
+    """The instantiation of the fused kernel that solves ``params``:
+    ``interleave=2`` has one of its own for CFR with a net and runs as
+    ``interleave=1`` otherwise."""
+    if not params.use_cfr:
+        return "grid2_fp"
+    return "grid2_cfr_il2" if has_net and interleave == 2 else "grid2_cfr"
 
 
+KERNEL_NAMES = ("grid2_cfr", "grid2_fp", "grid2_cfr_il2")
 solve.launches = 0
-solve.launches_by_kernel = {"grid2_cfr": 0, "grid2_fp": 0}
+solve.launches_by_kernel = dict.fromkeys(KERNEL_NAMES, 0)
 # Set to a list to collect ``(kernel name, start, end)`` CUDA events around
 # every launch (read the times after a synchronise); None collects nothing.
 solve.events = None

@@ -31,7 +31,7 @@ import torch
 from rebel_tpu_torch.games.liars_dice import LiarsDice
 from rebel_tpu_torch.nets.cfv_net import CFVNet
 from rebel_tpu_torch.selfplay import replay as rb
-from rebel_tpu_torch.selfplay.fast_runner import FastCudaEngine
+from rebel_tpu_torch.selfplay.fast_runner import make_engine
 from rebel_tpu_torch.selfplay.runner import EpisodeState, RecursiveSolvingParams
 
 
@@ -101,7 +101,9 @@ class Trainer:
     """Owns the net, optimizer, replay ring, episodes and generators.
 
     ``device`` defaults to the card; pass ``"cpu"`` to run the plain
-    versions.  ``engine`` replaces the default :class:`FastCudaEngine`.
+    versions.  The engine comes from ``fast_runner.make_engine``: the fused
+    solve (kind ``"kernel"``) for depth-2 subgames, the generic engine for
+    any other depth; ``engine`` replaces it.
     State is updated in place (the reference's immutable ``TrainState``
     becomes attributes here)."""
 
@@ -112,8 +114,10 @@ class Trainer:
             raise RuntimeError("device 'cuda' requested but CUDA is not "
                                "available")
         self.game: LiarsDice = cfg.env.game
-        self.engine = engine or FastCudaEngine(
-            cfg=cfg.env, net_compute_dtype=cfg.net_compute_dtype)
+        kind = ("kernel" if cfg.env.subgame_params.max_depth == 2
+                else "generic")
+        self.engine = engine or make_engine(
+            cfg.env, kind=kind, net_compute_dtype=cfg.net_compute_dtype)
         init_gen = torch.Generator().manual_seed(cfg.seed)
         self.net = CFVNet(self.game, cfg.n_hidden, cfg.n_layers,
                           cfg.use_layer_norm, generator=init_gen

@@ -182,7 +182,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rebel_tpu")
 
 def _port_sources():
     files = sorted((REPO / "rebel_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "chip_mutants.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
