@@ -82,6 +82,24 @@ MUTANTS = {
         "s_tstop[l] = p.t_stop[lane0 + l];",
         "s_tstop[l] = p.t_stop[blockIdx.x * p.LB + l];",
         KNOB_PHASES),
+    # The tensor-core MLP (bf16): the hidden layers' B operand read one
+    # 8-column group on (output column n takes weight column n + 8), the
+    # head's B fragment with its two k halves swapped, and LayerNorm's row
+    # statistics reduced over the wrong threads' partial sums (lanes 2 and
+    # 4 apart: half of them hold another row).  The f32 kernels do not run
+    # this code.
+    "mma-b-shift": (
+        "mma_desc(w + 256 * s, 128, sbo)",
+        "mma_desc(w + 256 * s + sbo, 128, sbo)",
+        KNOB_PHASES),
+    "mma-head-fragment": (
+        "a[4 * s + 3], b[64 * s], b[64 * s + 32]);",
+        "a[4 * s + 3], b[64 * s + 32], b[64 * s]);",
+        KNOB_PHASES),
+    "mma-ln-stats": (
+        "for (int off = 1; off < 4; off <<= 1) {",
+        "for (int off = 2; off < 8; off <<= 1) {",
+        KNOB_PHASES),
 }
 
 

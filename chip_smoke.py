@@ -9,7 +9,11 @@ an H100, ``sm_90a``).  It
 1. prints the card's name and power limit and builds the fused depth-2
    solve (``rebel_tpu_torch/kernels/grid2_cfr.cu``: the CFR kernel
    ``grid2_cfr``, the fictitious-play kernel ``grid2_fp`` and the
-   two-group CFR kernel ``grid2_cfr_il2``) with ``nvcc``;
+   two-group CFR kernel ``grid2_cfr_il2``, each in f32 and with bf16
+   operands) with ``nvcc``; prints each instantiation's registers, spills
+   and shared memory at the main path's lane block, and the tensor-core
+   instructions (``HGMMA``, ``HMMA``) in its machine code, which every bf16
+   instantiation must have and no f32 one may;
 2. ``cfr-checks``: holds ``grid2_cfr`` against its plain PyTorch version
    (``solving.grid2p.solve_reference``) on the card at 1x4f, B=256: f32
    with LayerNorm, f32 without LayerNorm, no net, bf16 with the fast GELU,
@@ -45,9 +49,11 @@ an H100, ``sm_90a``).  It
    LayerNorm (4 iterations to the absolute limit, 64 by the statistics).
    Then, on the walked episodes of phase 4 over 64 and 1024 iterations in
    f32 and bf16: every ``mlp_chunks`` and ``interleave=2`` give the same
-   bits as the default (``torch.equal`` on all three outputs), a value
-   of ``mlp_chunks`` that does not fit raises, and ``grid2_cfr_il2`` is
-   held to its plain version and timed at the self-play path's shapes;
+   bits as the default (``torch.equal`` on all three outputs); a layout
+   that does not fit a block's shared memory (f32 staging, bf16 weights
+   beside the lanes' state) raises before any launch; and
+   ``grid2_cfr_il2`` is held to its plain version and timed at the
+   self-play path's shapes;
 10. ``bench``: runs the generation benchmark
    (``python -m rebel_tpu_torch.bench``) at full width: the CFR headline
    with its FP and no-net sides, ``--interleave 2``, and the three
@@ -74,6 +80,7 @@ import copy
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -199,12 +206,21 @@ EXPLOIT_RTOL = {"cfr": 0.10, "fp": 0.02}
 # kernel with "cheaperf" and gelu="exact" must be PRECEDENCE_FACTOR times
 # closer to the plain fast GELU than to the plain exact one; and the values
 # of mlp_chunks held to the default bit for bit are, at the default lane
-# block of 8, some of those that fit, and 1 and 2 at a lane block of 2.
+# block of 8, some of those that fit, and 1 and 2 at a lane block of 2
+# (bf16 stages nothing, so every value fits and 1 is its default).
 MOST_LANES = 0.9
 MOST_LANES_TOL = {"f32": 1e-5, "bf16": 1e-4}
 PRECEDENCE_FACTOR = 4
-KNOB_CHUNKS = {8: (4, 7, 28), 2: (1, 2)}
-KNOB_CHUNKS_TOO_LARGE = (1, 2, 3)  # at a lane block of 8
+KNOB_CHUNKS = {"f32": {8: (4, 7, 28), 2: (1, 2)},
+               "bf16": {8: (2, 4, 7, 28), 2: (1, 2)}}
+KNOB_CHUNKS_TOO_LARGE = {"f32": (1, 2, 3), "bf16": ()}  # at a lane block of 8
+
+# The instantiations of grid2_kernel<WT, CPT, FP, NG> by their mangled
+# names' template arguments (FP, NG), and whether WT is bf16.
+INSTANTIATION = re.compile(
+    r"grid2_kernelI(13__nv_bfloat16|f)Li\d+ELb([01])ELi([12])E")
+KERNEL_OF = {("0", "1"): "grid2_cfr", ("1", "1"): "grid2_fp",
+             ("0", "2"): "grid2_cfr_il2"}
 
 PHASES = ("cfr-checks", "fp-checks", "cfr-selfplay", "cfr-shapes", "eval",
           "exploit-check", "fp-selfplay", "knob-checks", "bench")
@@ -213,6 +229,75 @@ PHASES = ("cfr-checks", "fp-checks", "cfr-selfplay", "cfr-shapes", "eval",
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def instantiation(mangled: str) -> tuple[str, bool] | None:
+    """``(kernel name, bf16)`` of a mangled grid2_kernel name."""
+    m = INSTANTIATION.search(mangled)
+    if m is None:
+        return None
+    return KERNEL_OF[m[2], m[3]], m[1] != "f"
+
+
+def build_report(build, grid2p, game, failures: list) -> None:
+    """Per instantiation: registers and spills (``-Xptxas -v``), shared
+    memory at the main path's lane block of 8 with a 256x2 net and the
+    default ``mlp_chunks`` (the wrapper's reckoning, which it holds equal
+    to the kernel's), and the tensor-core instructions in its machine
+    code."""
+    props: dict = {}
+    name = None
+    for line in build.build_log("grid2_cfr").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = instantiation(m[1])
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            props.setdefault(name, {}).update(spill_stores=int(m[1]),
+                                              spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            props.setdefault(name, {})["registers"] = int(m[1])
+    cuobjdump = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = None
+    if cuobjdump.exists():
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(build.library_path("grid2_cfr"))],
+            capture_output=True, text=True, timeout=300).stdout
+        name = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\w+)", line)
+            if m:
+                name = instantiation(m[1])
+                if name:
+                    props.setdefault(name, {}).update(HGMMA=0, HMMA=0)
+            elif name and "HGMMA" in line:
+                props[name]["HGMMA"] += 1
+            elif name and "HMMA" in line:
+                props[name]["HMMA"] += 1
+    else:
+        print(f"  cuobjdump not found at {cuobjdump}: the tensor-core "
+              "instructions are not counted")
+    params = {"grid2_fp": False}
+    for (kernel, bf16), got in sorted(props.items()):
+        groups = 2 if kernel == "grid2_cfr_il2" else 1
+        smem = grid2p.smem_layout(
+            game, 8, params.get(kernel, True), 256, 2, bf16, groups,
+            grid2p.default_mlp_chunks(len(grid2p.pseudo_leaf_pairs(game)), 8,
+                                      groups, bf16))["total"]
+        print(f"  {kernel} {'bf16' if bf16 else 'f32'}: "
+              f"{got.get('registers')} registers, spill stores "
+              f"{got.get('spill_stores')} B, spill loads "
+              f"{got.get('spill_loads')} B, shared memory {smem} B at lane "
+              f"block 8; HGMMA {got.get('HGMMA', 'not counted')}, HMMA "
+              f"{got.get('HMMA', 'not counted')}")
+        if sass is not None and bf16 != (got.get("HGMMA", 0) > 0):
+            failures.append(f"{kernel} {'bf16' if bf16 else 'f32'}: "
+                            f"{got.get('HGMMA', 0)} HGMMA instructions")
+    if len(props) != 6:
+        failures.append(f"build: {len(props)} instantiations of grid2_kernel "
+                        "found, expected 6")
 
 
 def main() -> int:
@@ -298,13 +383,11 @@ def main() -> int:
     build.load("grid2_cfr")
     print(f"kernel build: grid2_cfr.cu ({', '.join(KERNELS)}) "
           f"{build.build_seconds['grid2_cfr']:.1f} s")
-    for line in build.build_log("grid2_cfr").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-
-    lap("build")
     game = LiarsDice(1, 4)
     A, H = game.num_actions, game.num_hands
+    build_report(build, grid2p, game, failures)
+
+    lap("build")
 
     def random_inputs(batch: int, num_iters: int, seed: int):
         g = torch.Generator().manual_seed(seed)
@@ -954,7 +1037,7 @@ def main() -> int:
             for dtype in (f32, bf16):
                 name = "bf16" if dtype == bf16 else "f32"
                 base = grid2p.solve(*args, dtype)
-                for lane_block, values in KNOB_CHUNKS.items():
+                for lane_block, values in KNOB_CHUNKS[name].items():
                     lanes = B if lane_block == 8 else 256
                     part = (*args[:2], *(x[:lanes] for x in args[2:6]),
                             args[6])
@@ -987,21 +1070,50 @@ def main() -> int:
             grid2p.solve_reference(*args, bf16, lane_block=8, interleave=2),
             TOL_BF16_TRAINED)
 
-        # Which mlp_chunks fit a block's shared memory at lane_block 8.
-        print(f"mlp_chunks at lane_block 8, 1x4f (a block may use "
-              f"{grid2p.SMEM_LIMIT} B of shared memory):")
-        for knobs in [dict(mlp_chunks=c) for c in range(1, 29)] + [
-                dict(mlp_chunks=c, interleave=2) for c in (2, 3, 4, 7)]:
+        # Which layouts fit a block's shared memory: every mlp_chunks at
+        # lane_block 8 in both operand types (f32 stages a group of pairs'
+        # activations; bf16 stages none but keeps the weights), and the
+        # lane blocks and depths that bf16's weights leave room for.  A
+        # layout that does not fit must raise before anything launches.
+        def fits(label, *a, **knobs) -> str:
+            before = grid2p.solve.launches
             try:
-                grid2p.solve(*args, bf16, **knobs)
-                fits = "fits"
+                grid2p.solve(*a, **knobs)
+                return "fits"
             except ValueError as e:
-                fits = str(e)
-            print(f"  {knobs}: {fits}")
-            large = knobs["mlp_chunks"] in KNOB_CHUNKS_TOO_LARGE
-            if "interleave" not in knobs and large == (fits == "fits"):
-                failures.append(f"mlp_chunks={knobs['mlp_chunks']} at "
-                                f"lane_block 8: {fits}")
+                if grid2p.solve.launches != before:
+                    failures.append(f"{label}: launched, then raised")
+                return str(e)
+
+        print(f"layouts at 1x4f (a block may use {grid2p.SMEM_LIMIT} B of "
+              f"shared memory):")
+        for dtype, name in ((f32, "f32"), (bf16, "bf16")):
+            told = {}
+            for knobs in [dict(mlp_chunks=c) for c in range(1, 29)] + [
+                    dict(mlp_chunks=c, interleave=2) for c in (2, 3, 4, 7)]:
+                got = fits(f"{name} {knobs}", *args, dtype, **knobs)
+                told.setdefault(got, []).append(knobs)
+                large = knobs["mlp_chunks"] in KNOB_CHUNKS_TOO_LARGE[name]
+                if "interleave" not in knobs and large == (got == "fits"):
+                    failures.append(f"{name} mlp_chunks={knobs['mlp_chunks']} "
+                                    f"at lane_block 8: {got}")
+            for got, knobs in told.items():
+                print(f"  {name} lane_block 8, {len(knobs)} settings "
+                      f"({knobs[0]} .. {knobs[-1]}): {got}")
+        net3, net3_dev = fresh_net(3, True, 97)
+        part = [x[:1020] for x in args[2:6]]  # a multiple of 12 lanes
+        for label, a, knobs, want in (
+                ("bf16 cfr lane_block 12", (game, args[1], *part, args[6]),
+                 dict(lane_block=12), True),
+                ("bf16 fp lane_block 12", (game, fp(CHECK_ITERS), *part,
+                                           args[6]), dict(lane_block=12),
+                 False),
+                ("bf16 cfr 3 hidden layers", (*args[:6], net3_dev), {},
+                 False)):
+            got = fits(label, *a, bf16, **knobs)
+            print(f"  {label}: {got}")
+            if (got == "fits") != want:
+                failures.append(f"{label}: {got}")
 
         args = main_args
         il1_ms, _ = time_kernel(args)

@@ -49,13 +49,14 @@ from rebel_tpu_torch.solving.params import SubgameSolvingParams
 H100_BF16_FLOPS = 989e12
 N_HIDDEN, N_LAYERS = 256, 2
 # Defaults of --batch, --lane-block and --mlp-chunks, from the sweep of
-# rebel_tpu_torch/bench_sweep.py on an H100 (PERF.md): the best point that
-# CFR, fictitious play and the no-net mode all fit (a lane block of 16 reads
-# 3% more for CFR, and FP's staging does not fit beside its state), at one
-# block on each of the 132 SMs (larger batches read within 1%).
+# rebel_tpu_torch/bench_sweep.py on an H100 (PERF.md): the largest lane
+# block whose state fits beside the bf16 MLP block in shared memory for
+# CFR and fictitious play alike, at one block on each of the 132 SMs;
+# mlp_chunks None lets the wrapper choose (grid2p.default_mlp_chunks: one
+# group of pairs, the least row padding).
 DEFAULT_BATCH = 1056
 DEFAULT_LANE_BLOCK = 8
-DEFAULT_MLP_CHUNKS = 7
+DEFAULT_MLP_CHUNKS = None
 
 
 def card_name_and_power_limit() -> str | None:

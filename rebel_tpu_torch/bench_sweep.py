@@ -7,8 +7,8 @@ bf16) over lane blocks, batches, ``mlp_chunks`` and ``interleave``, then the
 three ablations, fictitious play, the no-net mode and the plain layout at
 the benchmark's defaults, and prints one JSON line per point with subgame-iterations per second
 (whole ``batch_step``s) and the kernel's own seconds per launch.  A point
-whose staging does not fit a block's shared memory is printed with the
-wrapper's error, which names the bytes needed.  The defaults of
+that does not fit a block's shared memory is printed with the wrapper's
+error, which names the bytes needed.  The defaults of
 ``rebel_tpu_torch.bench`` are chosen from this sweep (PERF.md).
 """
 
@@ -29,7 +29,7 @@ def point(out, steps: int, num_iters: int, **kw) -> dict:
     row = dict(kw)
     try:
         r = bench.measure(num_iters=num_iters, steps=steps, **kw)
-    except ValueError as e:  # the staging does not fit
+    except ValueError as e:  # the layout does not fit
         row["error"] = str(e)
     else:
         row.update(
@@ -61,7 +61,7 @@ def main(argv=None) -> int:
     rows = []
     # Lane block x mlp_chunks x interleave at one wave of blocks (one block
     # on each SM).
-    for lane_block in (2, 4, 8, 16):
+    for lane_block in (2, 4, 8, 12, 16):
         for mlp_chunks in (1, 2, 4, 7, 14):
             for interleave in (1, 2):
                 rows.append(run(batch=SMS * lane_block, lane_block=lane_block,

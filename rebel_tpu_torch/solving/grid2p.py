@@ -33,10 +33,10 @@ elementwise math is f32.  Both take the reference kernel's options:
   its statistics and keep scale and bias), ``"cheaperf"`` (the fast GELU,
   whatever ``gelu`` says); ``""`` follows ``gelu``;
 * ``mlp_chunks``: the P pseudo-leaf pairs are evaluated in that many
-  groups of ``ceil(P / mlp_chunks)`` pairs; the kernel stages one group's
-  query rows at a time.  Results do not depend on it (in the kernel, bit
-  for bit).  ``None`` takes as many pairs at a time as fill one row tile
-  of the kernel's product;
+  groups of ``ceil(P / mlp_chunks)`` pairs; the kernel runs one group's
+  query rows at a time, in row tiles of its product.  Results do not
+  depend on it (in the kernel, bit for bit).  ``None`` takes
+  :func:`default_mlp_chunks`;
 * ``interleave``: 2 splits every lane block into two half-blocks that are
   solved side by side (the kernel: by two groups of warps of one block, so
   that one half's MLP overlaps the other's update).  CFR with a net only;
@@ -61,6 +61,11 @@ from rebel_tpu_torch.solving.params import SubgameSolvingParams
 # another width comes with its check on the card.
 KERNEL_HIDDEN = (256,)
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+# The tensor-core MLP (bf16 operands): query rows of a warpgroup's tile,
+# warpgroups of a block, and the deepest first layer (Q rounded up to 16).
+MMA_ROWS = 64
+WARPGROUPS = 2
+MAX_K0 = 64
 
 
 class Grid2Outputs(NamedTuple):
@@ -185,6 +190,119 @@ def chunked(mlp, mlp_chunks: int, batch: int):
     return run
 
 
+def _ceil(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _core_matrices(w: torch.Tensor, n_pad: int, k_pad: int) -> torch.Tensor:
+    """``w [N, K]`` zero-padded to ``[n_pad, k_pad]`` and cut into 8 x 8
+    core matrices ``[n_pad / 8, k_pad / 8, 8, 8]``: the byte order in which
+    the kernel's tensor-core instructions read a K-major operand."""
+    n, k = w.shape
+    w = torch.nn.functional.pad(w, (0, k_pad - k, 0, n_pad - n))
+    return w.reshape(n_pad // 8, 8, k_pad // 8, 8).permute(0, 2, 1, 3)
+
+
+def mlp_block_shapes(game: LiarsDice, n_hidden: int, n_layers: int):
+    """``[(N, K), ...]`` of the weights in the bf16 MLP block, hidden layers
+    then the head, padded as the kernel reads them: K of the first layer is
+    the query size rounded up to 16, N of the head the hands rounded up to
+    8."""
+    k0, hn = _ceil(game.query_size, 16), _ceil(game.num_hands, 8)
+    return ([(n_hidden, k0 if k == 0 else n_hidden) for k in range(n_layers)]
+            + [(hn, n_hidden)])
+
+
+def mlp_block_bytes(game: LiarsDice, n_hidden: int, n_layers: int) -> int:
+    """Bytes of :func:`pack_mlp_weights`'s block: bf16 weights, then f32
+    bias, LayerNorm scale and bias of each hidden layer and the head's
+    bias."""
+    shapes = mlp_block_shapes(game, n_hidden, n_layers)
+    return (sum(2 * n * k for n, k in shapes)
+            + 4 * (3 * n_layers * n_hidden + shapes[-1][0]))
+
+
+@torch.no_grad()
+def pack_mlp_weights(net: CFVNet) -> torch.Tensor:
+    """The net as the kernel's bf16 MLP keeps it in shared memory: one
+    ``uint8`` block on the net's device that the kernel copies as it is.
+    Per hidden layer, then the head: ``weight [N, K]`` (the transpose of
+    the product's ``[K, N]``) rounded to bf16, zero-padded to
+    :func:`mlp_block_shapes` and cut by :func:`_core_matrices`; then in
+    f32 each hidden layer's bias, LayerNorm scale and LayerNorm bias (zeros
+    without LayerNorm) and the head's bias, zero-padded to its N."""
+    shapes = mlp_block_shapes(net.game, net.n_hidden, net.n_layers)
+    layers = [lin for lin, _ in net.hidden_layers()] + [net.output]
+    parts = [_core_matrices(lin.weight.float(), n, k).to(torch.bfloat16)
+             .reshape(-1).view(torch.uint8)
+             for lin, (n, k) in zip(layers, shapes)]
+    f32 = []
+    for lin, ln in net.hidden_layers():
+        zero = torch.zeros_like(lin.bias)
+        f32 += [lin.bias, zero if ln is None else ln.weight,
+                zero if ln is None else ln.bias]
+    hn = shapes[-1][0]
+    f32.append(torch.nn.functional.pad(net.output.bias, (0, hn - len(
+        net.output.bias))))
+    parts.append(torch.cat([x.float() for x in f32]).view(torch.uint8))
+    return torch.cat(parts)
+
+
+def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
+                n_hidden: int, n_layers: int, bf16: bool, groups: int = 1,
+                mlp_chunks: int = 1) -> dict:
+    """Bytes of a block's shared memory by part, as the kernel's
+    ``make_layout()`` lays it out (the wrapper holds the two equal on the
+    card): ``mlp`` (bf16 with a net: the packed MLP block and its
+    barrier), ``tables`` (pair tables and payoff), ``lanes`` (the solver
+    state of all lanes), ``staging`` (f32 with a net: the activations of a
+    group of pairs) and ``total``.  ``n_layers`` 0: no net."""
+    A, H = game.num_actions, game.num_hands
+    P = len(pseudo_leaf_pairs(game))
+    words = lambda *ns: sum(_ceil(n, 4) for n in ns)
+    net = n_layers > 0
+    mma = net and bf16
+    mlp = words(mlp_block_bytes(game, n_hidden, n_layers) // 4, 2) if mma else 0
+    tables = words(P, P, A * A, A * H * H)
+    LB = lane_block // groups
+    state = [LB, LB, LB, LB * A, LB * 2 * H, LB * H * H, LB * H * A,
+             LB * H * A, LB * A * H * A, LB * A * H * A, LB * 2 * H, LB * H,
+             LB * A * H, LB * A * H, LB * H, P * LB * H, P * LB * H, P * LB,
+             P * LB * H, LB * A * H, LB * H]
+    if not use_cfr:  # the average policy
+        state += [LB * H * A, LB * A * H * A]
+    lanes = words(*state)
+    staging = 0
+    if net and not mma:
+        rows = _ceil(-(-P // mlp_chunks) * LB, 16 * (256 // groups) // 128)
+        qpad = _ceil(game.query_size, 4)
+        staging = words(rows * qpad, rows * n_hidden, rows * n_hidden)
+    parts = dict(mlp=mlp, tables=tables, lanes=groups * lanes,
+                 staging=groups * staging)
+    parts["total"] = sum(parts.values())
+    return {k: 4 * v for k, v in parts.items()}
+
+
+def default_mlp_chunks(n_pairs: int, lane_block: int, groups: int,
+                       mma: bool) -> int:
+    """``mlp_chunks`` when the caller gives none.  The tensor-core MLP
+    (``mma``, bf16 with a net) stages nothing, so only its row padding
+    counts: the fewest groups of pairs that take the fewest turns of the
+    block's warpgroups over 64-row tiles (1 at 1x4f for every lane block
+    up to 16).  The f32 MLP stages a group's activations: as many pairs at
+    a time as fill one row tile of ``dense()`` (32 rows a block)."""
+    if not mma:
+        return -(-n_pairs // max(1, 32 // lane_block))
+    lanes, wgs = lane_block // groups, WARPGROUPS // groups
+
+    def turns(chunks):
+        per = -(-n_pairs // chunks)
+        tiles = -(-per * lanes // MMA_ROWS)
+        return -(-n_pairs // per) * -(-tiles // wgs)
+
+    return min(range(1, n_pairs + 1), key=lambda c: (turns(c), c))
+
+
 def effective_interleave(params: SubgameSolvingParams, has_net: bool,
                          interleave: int, lane_block: int | None) -> int:
     """1 or 2: ``interleave`` where it applies (CFR with a net), else 1.
@@ -295,6 +413,59 @@ def solve_reference(game: LiarsDice, params: SubgameSolvingParams,
     return out
 
 
+class KernelPlan(NamedTuple):
+    act: str  # the hidden layers' activation, one of ACTIVATIONS
+    groups: int  # groups of warps: 2 runs grid2_cfr_il2
+    mlp_chunks: int
+    bf16: bool  # bf16 operands (with a net: the tensor-core MLP)
+    smem: int  # bytes of shared memory a block takes
+
+
+def kernel_plan(game: LiarsDice, params: SubgameSolvingParams,
+                net: CFVNet | None, net_compute_dtype: torch.dtype,
+                batch: int, lane_block: int, mlp_chunks: int | None = None,
+                interleave: int = 1, gelu: str = "auto",
+                ablate: str = "") -> KernelPlan:
+    """What :func:`solve` launches for these options, worked out before
+    anything is built or launched.  Raises ``ValueError`` on an option the
+    kernel does not take and on a layout that does not fit a block's
+    shared memory (never shrinks the lane block, never falls back)."""
+    act, groups = _check_knobs(params, net, net_compute_dtype, lane_block,
+                               mlp_chunks, interleave, gelu, ablate)
+    if net_compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("net_compute_dtype must be float32 or bfloat16")
+    if batch % lane_block:
+        raise ValueError(f"batch {batch} is not a multiple of lane_block "
+                         f"{lane_block}")
+    bf16 = net_compute_dtype == torch.bfloat16
+    n_hidden = n_layers = 0
+    if net is not None:
+        n_hidden, n_layers = net.n_hidden, net.n_layers
+        if n_hidden not in KERNEL_HIDDEN or not 1 <= n_layers <= 8:
+            raise ValueError(
+                f"the kernel takes 1-8 hidden layers of width "
+                f"{KERNEL_HIDDEN}, not {n_layers} x {n_hidden}"
+            )
+        if bf16 and _ceil(game.query_size, 16) > MAX_K0:
+            raise ValueError(
+                f"the tensor-core MLP takes queries of up to {MAX_K0} "
+                f"values, not {game.query_size}")
+    mma = bf16 and net is not None
+    if mlp_chunks is None:
+        mlp_chunks = default_mlp_chunks(len(pseudo_leaf_pairs(game)),
+                                        lane_block, groups, mma)
+    need = smem_layout(game, lane_block, params.use_cfr, n_hidden, n_layers,
+                       bf16, groups, mlp_chunks)["total"]
+    if need > SMEM_LIMIT:
+        more = ("use a smaller lane_block or fewer hidden layers" if mma
+                else "use a smaller lane_block or more mlp_chunks")
+        raise ValueError(
+            f"lane_block {lane_block} with mlp_chunks {mlp_chunks} needs "
+            f"{need} B of shared memory per block, more than {SMEM_LIMIT}; "
+            f"{more}")
+    return KernelPlan(act, groups, mlp_chunks, bf16, need)
+
+
 @torch.no_grad()
 def solve(game: LiarsDice, params: SubgameSolvingParams,
           bids: torch.Tensor, players: torch.Tensor, beliefs: torch.Tensor,
@@ -308,8 +479,11 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     CPU inputs take :func:`solve_reference`.  Adds one per kernel launch
     to ``solve.launches`` and to ``solve.launches_by_kernel`` under
     :func:`kernel_name`; while ``solve.events`` is a list, appends a pair
-    of CUDA events around each launch.  An ``mlp_chunks`` or ``lane_block``
-    whose staging does not fit a block's shared memory raises."""
+    of CUDA events around each launch.  With bf16 operands and a net the
+    kernel runs the MLP on the tensor cores from the block that
+    :func:`pack_mlp_weights` lays out.  Options whose layout does not fit
+    a block's shared memory raise (:func:`kernel_plan`) before anything is
+    built or launched."""
     dev = beliefs.device
     if dev.type == "cpu":
         return solve_reference(game, params, bids, players, beliefs, t_stop,
@@ -318,26 +492,15 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     if dev.type != "cuda":
         raise ValueError(f"solve runs on cuda or cpu tensors, not {dev}")
     _check_inputs(game, params, bids, players, beliefs, t_stop)
-    act, groups = _check_knobs(params, net, net_compute_dtype, lane_block,
-                               mlp_chunks, interleave, gelu, ablate)
+    B = bids.shape[0]
+    plan = kernel_plan(game, params, net, net_compute_dtype, B, lane_block,
+                       mlp_chunks, interleave, gelu, ablate)
     from rebel_tpu_torch.kernels import build
 
     A, H, F = game.num_actions, game.num_hands, game.num_faces
     Q = game.query_size
     Qpad = (Q + 3) // 4 * 4
-    B = bids.shape[0]
-    if B % lane_block:
-        raise ValueError(f"batch {B} is not a multiple of lane_block "
-                         f"{lane_block}")
-    n_pairs = len(pseudo_leaf_pairs(game))
-    if mlp_chunks is None:
-        # As many pairs at a time as fill one row tile of the kernel's
-        # product (32 rows for a block, 16 for each of two groups).
-        mlp_chunks = -(-n_pairs // max(1, 32 // lane_block))
-    bf16 = net_compute_dtype == torch.bfloat16
-    if net_compute_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError("net_compute_dtype must be float32 or bfloat16")
-    wdt = torch.bfloat16 if bf16 else torch.float32
+    mma = plan.bf16 and net is not None  # the tensor-core MLP
 
     f32 = lambda x: x.to(device=dev, dtype=torch.float32).contiguous()
     i32 = lambda x: x.to(device=dev, dtype=torch.int32).contiguous()
@@ -357,43 +520,44 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     n_hidden = n_layers = 0
     if net is not None:
         n_hidden, n_layers = net.n_hidden, net.n_layers
-        if n_hidden not in KERNEL_HIDDEN or not 1 <= n_layers <= 8:
-            raise ValueError(
-                f"the kernel takes 1-8 hidden layers of width "
-                f"{KERNEL_HIDDEN}, not {n_layers} x {n_hidden}"
-            )
+        # f32 weights for dense(); bf16 ones go in the packed block, which
+        # holds the biases and LayerNorm parameters too (the kernel reads
+        # ln_scale only for whether the layer has LayerNorm).
         for k, (lin, ln) in enumerate(net.hidden_layers()):
-            w = lin.weight.detach().T.to(device=dev, dtype=torch.float32)
-            if k == 0:  # pad the input rows to a multiple of 4
-                w = torch.cat([w, w.new_zeros(Qpad - Q, n_hidden)])
-            keep += [w.to(wdt).contiguous(), f32(lin.bias.detach())]
+            w = None
+            if not mma:
+                w = lin.weight.detach().T.to(device=dev, dtype=torch.float32)
+                if k == 0:  # pad the input rows to a multiple of 4
+                    w = torch.cat([w, w.new_zeros(Qpad - Q, n_hidden)])
+                w = w.contiguous()
+            keep += [w, f32(lin.bias.detach())]
             keep += ([f32(ln.weight.detach()), f32(ln.bias.detach())]
                      if ln is not None else [None, None])
-        keep += [net.output.weight.detach().T.to(dev, wdt).contiguous(),
+        keep += [None if mma else f32(net.output.weight.detach().T),
                  f32(net.output.bias.detach())]
+        if mma:
+            keep.append(pack_mlp_weights(net).to(dev))
 
     ints = [B, lane_block, A, H, F, game.total_num_dice, Q, Qpad, n_hidden,
             n_layers, params.num_iters, int(params.linear_update),
-            int(params.dcfr), int(net is not None), int(bf16),
+            int(params.dcfr), int(net is not None), int(plan.bf16),
             int(not params.use_cfr), int(params.optimistic),
-            ACTIVATIONS.index(act), int(ablate != "noln"), mlp_chunks,
-            groups]
+            ACTIVATIONS.index(plan.act), int(ablate != "noln"),
+            plan.mlp_chunks, plan.groups]
     c_ints = (ctypes.c_int * len(ints))(*ints)
     lib = build.load("grid2_cfr")
     _declare(lib)
     smem = lib.grid2_cfr_smem_bytes(c_ints)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"lane_block {lane_block} with mlp_chunks {mlp_chunks} needs "
-            f"{smem} B of shared memory per block, more than {SMEM_LIMIT}; "
-            f"use a smaller lane_block or more mlp_chunks"
-        )
+    if smem != plan.smem:
+        raise RuntimeError(
+            f"the kernel lays out {smem} B of shared memory and smem_layout "
+            f"reckons {plan.smem} B: the two have come apart")
     ptrs = (ctypes.c_void_p * len(keep))(
         *[0 if t is None else t.data_ptr() for t in keep]
     )
     floats = (ctypes.c_float * 2)(params.dcfr_alpha, params.dcfr_beta)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    name = kernel_name(params, net is not None, groups)
+    name = kernel_name(params, net is not None, plan.groups)
     events = None
     if solve.events is not None:
         events = (torch.cuda.Event(enable_timing=True),
