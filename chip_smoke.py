@@ -58,12 +58,24 @@ an H100, ``sm_90a``).  It
    (``python -m rebel_tpu_torch.bench``) at full width: the CFR headline
    with its FP and no-net sides, ``--interleave 2``, and the three
    ablations, and prints every JSON line;
-11. prints one ``{"kernels": [...]}`` line with the three kernels and
+11. ``run-entry``: trains the way users do, through the run entry
+   (``rebel_tpu_torch.run``, in process) over ``conf/liars_sp.yaml`` with
+   the round-5 overrides (``selfplay.engine=pallas
+   selfplay.net_compute_dtype=bf16 env.subgame_params.use_cfr=true``) at
+   full width: two epochs with checkpoints and an exploit evaluation at
+   epoch 0, then ``--mode start_continue`` to a third epoch with its own
+   evaluation; holds the experiment dir's files, the JAX package's metric
+   names, both exploitabilities in [0, 2], the resume (epoch 2 from the
+   checkpoint, the ring's count carried on) and ``ckpt/epoch2.params``
+   against the live net, and prints the epochs' generation, training,
+   evaluation (by part) and checkpoint seconds and bytes;
+12. prints one ``{"kernels": [...]}`` line with the three kernels and
    ``{"ok": true, "device": {...}}`` as the last line.
 
 The launch counts of the kernels are set to 0 just before each of the
-five paths (4, 6 for each net, 8, 10) and read just after; a kernel that a
-path should run and did not fails the run.
+paths (4, 6 for each net, 8, 10, each run of 11) and read just after; a
+kernel that a path should run and did not fails the run.  In 11,
+``grid2_cfr`` must run in generation (bf16) and in the evaluation (f32).
 
 ``--phases a,b`` runs only the named phases (and the build); such a run
 prints no result line.
@@ -89,6 +101,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), at 700 W.
 H100_BF16_FLOPS = 989e12
+H100_F32_FLOPS = 67e12  # outside the tensor cores
 H100_HBM_BYTES_PER_S = 3.35e12
 
 # Kernel vs plain version on the same inputs.  Two checks per mode:
@@ -223,7 +236,23 @@ KERNEL_OF = {("0", "1"): "grid2_cfr", ("1", "1"): "grid2_fp",
              ("0", "2"): "grid2_cfr_il2"}
 
 PHASES = ("cfr-checks", "fp-checks", "cfr-selfplay", "cfr-shapes", "eval",
-          "exploit-check", "fp-selfplay", "knob-checks", "bench")
+          "exploit-check", "fp-selfplay", "knob-checks", "bench", "run-entry")
+
+# The run entry (phase 11): conf/liars_sp.yaml with the round-5 overrides
+# (scripts/round5_run.sh), cut to two epochs and a resumed third.
+RUN_ENTRY_ARGS = ["selfplay.engine=pallas", "selfplay.net_compute_dtype=bf16",
+                  "env.subgame_params.use_cfr=true", "checkpoint_every=1",
+                  "exploit_every=2", "eval_num_repeats=8",
+                  "stall_timeout_s=600"]
+# Metric names of the JAX package's epoch (tests/test_trainer.py:47-57 and
+# its epoch loop), and those of an exploit epoch.
+EPOCH_METRICS = ("epoch", "loss/train", "optim/lr", "optim/grad_max",
+                 "optim/grad_mean", "optim/grad_clip_ratio", "buffer/size",
+                 "buffer/added", "bps/train", "bps/train_examples", "bps/gen",
+                 "bps/gen_examples", "timing/gen", "timing/train",
+                 "shares/train_initial")
+EXPLOIT_METRICS = ("exploitability_last", "exploitability_avg",
+                   "timing/exploit")
 
 
 def fail(msg: str) -> None:
@@ -618,6 +647,10 @@ def main() -> int:
             n_hidden=256, n_layers=2, use_layer_norm=True,
             train_epoch_size=25600, train_batch_size=512, train_gen_ratio=4,
             selfplay_batch=B, net_compute_dtype=torch.bfloat16, seed=0,
+            # No exploit evaluation and no validation snapshot (whose rows
+            # are drawn from the generator): the stream and the numbers of
+            # this path stay those of the trainer before the run entry.
+            exploit=False, create_validation_set_every=0,
         )
         trainer = Trainer(cfg, device="cuda")
         reset_counts()
@@ -630,10 +663,10 @@ def main() -> int:
         mean_solve_ms = sum(solve_ms) / len(solve_ms)
         flops = grid2p.mlp_flops_per_lane_iter(
             game, cfg.n_hidden, cfg.n_layers) * B * sub.num_iters
-        gen_s = sum(m["timing/gen"] for m in metrics) + metrics[0][
-            "timing/burn_in"]
+        # timing/* are means over the epochs run.
+        gen_s = metrics[-1]["timing/gen"] * len(metrics) + trainer.burn_in_s
         gen_examples = 2 * B * trainer.gen_steps
-        train_s = sum(m["timing/train"] for m in metrics)
+        train_s = metrics[-1]["timing/train"] * len(metrics)
         steps = trainer.steps_per_epoch * len(metrics)
         losses = [m["loss/train"] for m in metrics]
         print(f"{name}: 1x4f CFVNet 256x2 LN, linear "
@@ -1157,12 +1190,119 @@ def main() -> int:
                     / sum(full["no_net_cfr_launches"].values()))
         lanes = full["batch"]
         nonet_bytes = 4 * lanes * (2 * H + 3 + 2 * H + H * A + A * H * A)
+        nonet_ops = (grid2p.nonet_ops_per_lane_iter(game, True) * lanes
+                     * full["num_iters"])
+        bytes_ms = nonet_bytes / H100_HBM_BYTES_PER_S * 1e3
+        ops_ms = nonet_ops / H100_F32_FLOPS * 1e3
         print(f"bench no-net: kernel {nonet_ms:.3f} ms per launch of {lanes} "
-              f"lanes; bound {nonet_bytes / H100_HBM_BYTES_PER_S * 1e3:.6f} "
-              f"ms (bytes: {nonet_bytes} B at {H100_HBM_BYTES_PER_S:.3e} "
-              f"B/s); no-net share of a CFR solve "
+              f"lanes; bound {max(bytes_ms, ops_ms):.6f} ms (bytes: "
+              f"{nonet_bytes} B at {H100_HBM_BYTES_PER_S:.3e} B/s, "
+              f"{bytes_ms:.6f} ms; operations: {nonet_ops:.4e} f32 at "
+              f"{H100_F32_FLOPS:.2e}/s, {ops_ms:.6f} ms; share "
+              f"{max(bytes_ms, ops_ms) / nonet_ms:.4%}); no-net share of a "
+              f"CFR solve "
               f"{nonet_ms / (full['kernel_s'] * 1e3 / full['steps']):.4f}")
         lap("bench")
+
+    # --------------------------------------------------- 11. the run entry
+    def run_entry() -> None:
+        """``python -m rebel_tpu_torch.run`` in process, as users train:
+        two epochs from a fresh experiment dir (an exploit evaluation at
+        epoch 0), then ``--mode start_continue`` to a third (one at epoch
+        2); checks the files, the metrics, the checkpoints and their
+        ``.params`` exports, the resume and the kernels' launches."""
+        import tempfile
+
+        from rebel_tpu_torch import run as run_mod
+        from rebel_tpu_torch.nets import convert
+
+        rows = 2 * B  # examples a generation step adds
+        with tempfile.TemporaryDirectory() as tmp:
+            exp = pathlib.Path(tmp) / "liars_sp"
+            outs = []
+            for mode, epochs in (("gentle_start", 2), ("start_continue", 3)):
+                reset_counts()
+                t0 = time.perf_counter()
+                out = run_mod.execute([
+                    "--cfg", str(ROOT / "conf" / "liars_sp.yaml"), "--exp_dir",
+                    str(exp), "--mode", mode, *RUN_ENTRY_ARGS,
+                    f"max_epochs={epochs}"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                tr = out.trainer
+                gen = tr.gen_steps - (outs[-1].trainer.gen_steps
+                                      if outs else 0)
+                print(f"run-entry --mode {mode} max_epochs={epochs}: "
+                      f"{wall:.2f} s wall, epochs {tr.epoch}, {gen} "
+                      f"generation steps, burn-in {tr.burn_in_s:.3f} s")
+                total = read_counts(f"run-entry {mode}", "grid2_cfr")
+                if total - gen <= 0:
+                    failures.append(f"run-entry {mode}: grid2_cfr launched "
+                                    f"{total} times for {gen} generation "
+                                    "steps: none in the evaluation")
+                print(f"  grid2_cfr launches: {gen} in generation (bf16), "
+                      f"{total - gen} in the exploit evaluation (f32)")
+                outs.append(out)
+            lines = [json.loads(x) for x in
+                     (exp / "metrics.jsonl").read_text().splitlines()]
+            for m in lines:
+                # timing/gen and timing/train are means over the epochs run
+                # in the process: epochs 0-1 in the first, 2 in the second.
+                n = m["epoch"] + 1 if m["epoch"] < 2 else m["epoch"] - 1
+                parts = {k: m[k] for k in m
+                         if k.startswith(("timing/exploit", "exploitability"))
+                         or k in ("timing/checkpoint", "checkpoint/bytes")}
+                print(f"  epoch {m['epoch']}: generation "
+                      f"{m['timing/gen'] * n:.3f} s and training "
+                      f"{m['timing/train'] * n:.3f} s over the {n} "
+                      f"epoch(s) of its process, loss {m['loss/train']:.6f}, "
+                      f"buffer/added {m['buffer/added']}; "
+                      + ", ".join(f"{k} {v:.4g}" for k, v in parts.items()))
+            missing = [k for k in EPOCH_METRICS + ("loss/valid_snapshot_0000",)
+                       if k not in lines[0]] + [
+                k for k in EXPLOIT_METRICS
+                if k not in lines[0] or k not in lines[2]]
+            if missing:
+                failures.append(f"run-entry: metrics missing: {missing}")
+            for m in (lines[0], lines[2]):
+                for k in ("exploitability_last", "exploitability_avg"):
+                    if not (0 <= m.get(k, math.nan) <= 2):
+                        failures.append(f"run-entry epoch {m['epoch']}: {k} "
+                                        f"{m.get(k)}")
+            files = ["result.json", "config.json", "heartbeat",
+                     "metrics.jsonl"] + [f"ckpt/epoch{e}.{x}" for e in range(3)
+                                         for x in ("ckpt", "params")]
+            absent = [f for f in files if not (exp / f).exists()]
+            if absent:
+                failures.append(f"run-entry: files missing: {absent}")
+            resumed = outs[1].trainer
+            gen2 = resumed.gen_steps - outs[0].trainer.gen_steps
+            if [m["epoch"] for m in lines] != [0, 1, 2] or (
+                    lines[2]["buffer/added"]
+                    != lines[1]["buffer/added"] + rows * gen2):
+                failures.append(
+                    "run-entry: the resumed run did not continue epoch 2 "
+                    f"from the checkpoint ({[m['epoch'] for m in lines]}, "
+                    f"buffer/added {[m['buffer/added'] for m in lines]}, "
+                    f"{gen2} steps of {rows} rows)")
+            q = torch.rand((1024, game.query_size),
+                           generator=torch.Generator().manual_seed(5)).to(dev)
+            exported = convert.load_params_net(exp / "ckpt" / "epoch2.params",
+                                               game, dev)
+            with torch.no_grad():
+                same = torch.equal(exported(q), resumed.net(q))
+            print(f"  epoch2.params against the live net on 1024 queries: "
+                  f"{'equal' if same else 'DIFFERENT'}")
+            if not same:
+                failures.append("run-entry: epoch2.params differs from the "
+                                "live net")
+            if not all(math.isfinite(x) for x in (
+                    lines[0]["loss/train"], lines[2]["loss/train"])):
+                failures.append("run-entry: non-finite training loss")
+
+    if "run-entry" in phases:
+        run_entry()
+        lap("run-entry")
 
     print(f"phase host seconds: {phase_s}")
     if failures:

@@ -1,14 +1,25 @@
-"""Batched recursive subgame solving over the full game tree.
+"""Recursive subgame solving over the full game tree, the counterpart of
+``rebel_tpu/eval/recursive.py``.
 
-Counterpart of the batched part of ``rebel_tpu/eval/recursive.py``: all
-subgames of the recursion share one depth-2 topology, so each *frontier*
-of the recursion, over all repeats at once, is solved as lane batches on
-the device; only the tree bookkeeping stays on the host.
+Every subgame of the recursion is a mask over one shared supertree, so
+each *frontier* of the recursion is solved as one batch on the device
+(lanes as the leading dimension); only the tree bookkeeping stays on the
+host.  Two recursions:
+
+* the sequential one, for any depth (:class:`BatchSubgameSolver`, the
+  generic CFR/FP solver; :func:`compute_strategy_recursive`,
+  :func:`compute_strategy_recursive_to_leaf`,
+  :func:`compute_sampled_strategy_recursive_to_leaf`), one repeat at a
+  time, as the in-training exploitability runs it;
+* the batched one over many repeats at depth 2, the paper protocol
+  (:class:`Grid2FrontierSolver`, the fused solve;
+  :func:`compute_sampled_strategies_to_leaf_batch`).
 
 Per-subgame random stop iterations (the emulation of training-time play)
-are realised by running every iteration and taking each lane's sampling
-policy at its own ``t``: the same result as stopping at ``t``, with no
-ragged shapes.
+are realised by running every iteration and taking each lane's policy at
+its own ``t``: the same result as stopping at ``t``, with no ragged
+shapes.  Stop iterations are drawn with ``np.random.RandomState``, as in
+the JAX package, so both packages draw the same ones.
 """
 
 from __future__ import annotations
@@ -20,9 +31,20 @@ import torch
 
 from rebel_tpu_torch.games.liars_dice import LiarsDice
 from rebel_tpu_torch.solving import grid2p
-from rebel_tpu_torch.solving.core import ValueFn, reach_eps
+from rebel_tpu_torch.solving.core import (
+    RootCtx,
+    SolverContext,
+    ValueFn,
+    reach_eps,
+)
 from rebel_tpu_torch.solving.params import SubgameSolvingParams
-from rebel_tpu_torch.tree import NO_CHILD, unroll_tree
+from rebel_tpu_torch.solving.solver import build_solver
+from rebel_tpu_torch.tree import (
+    NO_CHILD,
+    TreeSpec,
+    build_supertree,
+    unroll_tree,
+)
 
 ENGINES = ("kernel", "plain")
 
@@ -42,6 +64,239 @@ def stop_iteration_weights(num_iters: int) -> np.ndarray:
 
 def _dtype_name(dtype) -> str:
     return str(dtype).removeprefix("torch.")
+
+
+# ------------------------------------------------- sequential recursion
+@dataclasses.dataclass(frozen=True, eq=False)
+class BatchSubgameSolver:
+    """The generic solver over a batch of subgames on one supertree, with
+    each lane's average and sampling strategy taken at its own stop
+    iteration.  Plain PyTorch on ``device``; the value net is evaluated by
+    ``value_fn`` at the pseudo-leaves."""
+
+    game: LiarsDice
+    params: SubgameSolvingParams
+    dtype: torch.dtype = torch.float64
+    value_fn: ValueFn | None = None
+    max_depth: int | None = None  # default: params.max_depth
+    device: str | torch.device = "cuda"
+
+    def __post_init__(self):
+        depth = (self.params.max_depth if self.max_depth is None
+                 else self.max_depth)
+        tree = build_supertree(self.game, min(depth, self.game.max_depth))
+        ctx = SolverContext(game=self.game, tree=tree, dtype=self.dtype,
+                            device=self.device)
+        object.__setattr__(self, "tree", tree)
+        object.__setattr__(self, "ctx", ctx)
+        object.__setattr__(self, "solver",
+                           build_solver(ctx, self.params, self.value_fn))
+
+    @torch.no_grad()
+    def _solve_chunk(self, bids, players, beliefs, stops: np.ndarray):
+        solver, ctx = self.solver, self.ctx
+        dev = torch.device(self.device)
+        root = RootCtx.of(self.game, torch.as_tensor(bids, device=dev),
+                          torch.as_tensor(players, device=dev))
+        beliefs = torch.as_tensor(beliefs, dtype=self.dtype, device=dev)
+        state = solver.init(root, beliefs)
+        snap_avg = solver.average_strategy(state, root)
+        snap_samp = solver.sampling_strategy(state)
+        stops_t = torch.as_tensor(stops, device=dev)
+        num_iters = self.params.num_iters
+        # Snapshots are taken before iteration t, and after the last one
+        # for t == num_iters; only iterations some lane stops at need one.
+        wanted = set(stops.tolist())
+        for it in range(num_iters + 1):
+            if it in wanted:
+                take = (stops_t == it)[:, None, None, None]
+                snap_avg = torch.where(
+                    take, solver.average_strategy(state, root), snap_avg)
+                snap_samp = torch.where(
+                    take, solver.sampling_strategy(state), snap_samp)
+            if it < num_iters:
+                state = solver.step(state, it % 2, root)
+        # Reaches under both candidate belief-propagation strategies: the
+        # sampled mode walks with the sampling strategy, the unsampled
+        # one with the average (they differ for CFR).
+        reaches = [
+            torch.stack([ctx.compute_reaches(s, beliefs[:, p], p, root)
+                         for p in (0, 1)], dim=1)
+            for s in (snap_samp, snap_avg)
+        ]
+        return tuple(x.cpu().numpy()
+                     for x in (snap_avg, snap_samp, *reaches))
+
+    def solve(self, bids, players, beliefs, stop_iters=None,
+              chunk: int = 256):
+        """``bids/players/stop_iters [B]`` (``None``: a full solve),
+        ``beliefs [B, 2, H]`` -> numpy ``(average [B, N, H, A], sampling
+        [B, N, H, A], reaches under sampling [B, 2, N, H], reaches under
+        average [B, 2, N, H])``, solved ``chunk`` lanes at a time."""
+        B = int(np.shape(bids)[0])
+        if stop_iters is None:
+            stop_iters = np.full((B,), self.params.num_iters)
+        stop_iters = np.asarray(stop_iters, np.int64)
+        outs = [
+            self._solve_chunk(np.asarray(bids[lo:lo + chunk], np.int64),
+                              np.asarray(players[lo:lo + chunk], np.int64),
+                              np.asarray(beliefs)[lo:lo + chunk],
+                              stop_iters[lo:lo + chunk])
+            for lo in range(0, B, chunk)
+        ]
+        return tuple(np.concatenate([o[k] for o in outs], axis=0)
+                     for k in range(4))
+
+
+def _map_supertree_to_full(sup: TreeSpec, full: TreeSpec,
+                           full_root: int) -> np.ndarray:
+    """For a subgame rooted at full-tree node ``full_root``, the full-tree
+    node of each supertree node (``NO_CHILD`` where the root's legal
+    actions do not reach it), matched child by child on action ids."""
+    m = np.full(sup.num_nodes, NO_CHILD, np.int64)
+    m[0] = full_root
+    for s in range(1, sup.num_nodes):
+        p = m[sup.parent[s]]
+        if p == NO_CHILD:
+            continue
+        m[s] = full.child_index[p, sup.last_bid[s]]
+    return m
+
+
+def _solve_frontier(bsolver: BatchSubgameSolver,
+                    frontier: list[tuple[int, np.ndarray]], full: TreeSpec,
+                    rng: np.random.RandomState | None,
+                    iteration_weights: np.ndarray | None):
+    """Solve a frontier of subgames in one batch; with
+    ``iteration_weights``, each subgame stops at an iteration drawn from
+    ``rng`` with those weights."""
+    bids = np.array([full.last_bid[n] for n, _ in frontier], np.int32)
+    players = np.array([full.node_player(n) for n, _ in frontier], np.int32)
+    beliefs = np.stack([b for _, b in frontier])
+    stops = None
+    if iteration_weights is not None:
+        p = iteration_weights / iteration_weights.sum()
+        stops = rng.choice(len(iteration_weights), size=len(frontier),
+                           p=p).astype(np.int32)
+    return bids, players, bsolver.solve(bids, players, beliefs, stops)
+
+
+def compute_strategy_recursive(game: LiarsDice,
+                               params: SubgameSolvingParams,
+                               value_fn: ValueFn | None = None,
+                               dtype=torch.float64,
+                               device="cuda") -> np.ndarray:
+    """Root-policy-only recursion: every non-terminal full-tree node gets
+    the root policy of a subgame solved at that node; its children
+    recurse with Bayes-updated beliefs.  Returns ``[N_full, H, A]``."""
+    full = unroll_tree(game)
+    bsolver = BatchSubgameSolver(game, params, dtype, value_fn,
+                                 device=device)
+    eps = reach_eps(dtype)
+    H, A = game.num_hands, game.num_actions
+    strategy = np.zeros((full.num_nodes, H, A))
+    frontier = [(0, np.full((2, H), 1.0 / H))]
+    while frontier:
+        frontier = [(n, b) for n, b in frontier if not full.is_terminal[n]]
+        if not frontier:
+            break
+        _, _, (avg, _, _, _) = _solve_frontier(bsolver, frontier, full,
+                                               None, None)
+        next_frontier = []
+        for i, (n, beliefs) in enumerate(frontier):
+            root_policy = avg[i, 0]  # [H, A]
+            strategy[n] = root_policy
+            pid = full.node_player(n)
+            for k in range(int(full.num_children[n])):
+                a = int(full.first_action[n]) + k
+                nb = beliefs.copy()
+                nb[pid] = _normalize_safe_np(beliefs[pid] * root_policy[:, a],
+                                             eps)
+                next_frontier.append((int(full.children_begin[n]) + k, nb))
+        frontier = next_frontier
+    return strategy
+
+
+def compute_strategy_recursive_to_leaf(
+    game: LiarsDice,
+    params: SubgameSolvingParams,
+    value_fn: ValueFn | None = None,
+    use_sampling_strategy: bool = False,
+    sample_iters_seed: int | None = None,
+    root_only: bool = False,
+    dtype=torch.float64,
+    device="cuda",
+) -> np.ndarray:
+    """Whole-subgame-copy recursion: each subgame's policy is copied into
+    the full tree, and the recursion continues only at the subgame's
+    non-terminal leaves, with the beliefs propagated along the path.
+
+    With ``sample_iters_seed`` each subgame stops at a random even
+    iteration with linear weights and its *sampling* strategy is copied
+    (``use_sampling_strategy`` implied).  ``root_only``: only the root
+    subgame is depth-limited; the ones below are solved to full depth.
+    Returns ``[N_full, H, A]``."""
+    full = unroll_tree(game)
+    bsolver = BatchSubgameSolver(game, params, dtype, value_fn,
+                                 device=device)
+    deep_solver = (BatchSubgameSolver(game, params, dtype, value_fn,
+                                      max_depth=game.max_depth,
+                                      device=device)
+                   if root_only else bsolver)
+    eps = reach_eps(dtype)
+    H, A = game.num_hands, game.num_actions
+    strategy = np.zeros((full.num_nodes, H, A))
+    rng = iteration_weights = None
+    if sample_iters_seed is not None:
+        rng = np.random.RandomState(sample_iters_seed)
+        iteration_weights = stop_iteration_weights(params.num_iters)
+        use_sampling_strategy = True
+
+    frontier = [(0, np.full((2, H), 1.0 / H))]
+    solver_i = bsolver
+    while frontier:
+        frontier = [(n, b) for n, b in frontier if not full.is_terminal[n]]
+        if not frontier:
+            break
+        _, _, (avg, samp, r_samp, r_avg) = _solve_frontier(
+            solver_i, frontier, full, rng, iteration_weights)
+        copy_strat = samp if use_sampling_strategy else avg
+        reaches = r_samp if use_sampling_strategy else r_avg  # [B,2,N,H]
+        sup = solver_i.tree
+        next_frontier = []
+        for i, (n, _) in enumerate(frontier):
+            m = _map_supertree_to_full(sup, full, n)
+            valid = m != NO_CHILD
+            strategy[m[valid]] = copy_strat[i][valid]
+            for s in np.nonzero(valid & sup.is_leaf & ~sup.is_terminal)[0]:
+                fn = int(m[s])
+                if full.num_children[fn] == 0:
+                    continue  # a leaf of the full tree: nothing below
+                nb = np.stack([_normalize_safe_np(reaches[i, 0, s], eps),
+                               _normalize_safe_np(reaches[i, 1, s], eps)])
+                next_frontier.append((fn, nb))
+        frontier = next_frontier
+        solver_i = deep_solver
+    return strategy
+
+
+def compute_sampled_strategy_recursive_to_leaf(
+    game: LiarsDice,
+    params: SubgameSolvingParams,
+    value_fn: ValueFn | None = None,
+    seed: int = 0,
+    root_only: bool = False,
+    dtype=torch.float64,
+    device="cuda",
+) -> np.ndarray:
+    """The training-time-emulating sampled strategy of one repeat."""
+    return compute_strategy_recursive_to_leaf(
+        game, params, value_fn, use_sampling_strategy=True,
+        sample_iters_seed=seed, root_only=root_only, dtype=dtype,
+        device=device)
+
+
+# ------------------------------------------ batched depth-2 recursion
 
 
 def resolved_net_compute_dtype(engine: str, solver_dtype,

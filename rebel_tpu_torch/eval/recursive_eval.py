@@ -10,8 +10,9 @@ solving.  Counterpart of ``rebel_tpu/eval/recursive_eval.py``.
   full-tree strategy at power-of-two repeat counts.
 * Machine-readable ``XXX {...}`` / ``YYY {...}`` JSON result lines.
 
-Only the batched depth-2 recursion (the paper protocol) is ported; the
-one-repeat-at-a-time recursion for other depths is not.
+At depth 2 (the paper protocol) the repeats run as lane batches through
+the batched recursion; other depths take the sequential recursion, one
+repeat at a time, on the plain engine.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 from rebel_tpu_torch.eval.recursive import (
     Grid2FrontierSolver,
     compute_sampled_strategies_to_leaf_batch,
+    compute_sampled_strategy_recursive_to_leaf,
     resolved_net_compute_dtype,
 )
 from rebel_tpu_torch.games.liars_dice import LiarsDice
@@ -137,7 +139,9 @@ def sampled_eval(
     fsolver: Grid2FrontierSolver | None = None,
 ):
     """Phase 2: the reach-weighted average of sampled recursive
-    strategies, repeats run as lane batches on the device.
+    strategies, repeats run as lane batches on the device at
+    ``mdp_depth == 2`` and one at a time through the sequential recursion
+    (plain engine only) at other depths.
 
     ``acc_path`` (if given) receives an atomic .npz snapshot of the
     reach-weighted accumulator after every power-of-two report and every
@@ -154,11 +158,12 @@ def sampled_eval(
     checkpoint's ``net``; see :class:`rebel_tpu_torch.eval.recursive.
     Grid2FrontierSolver`.  ``fsolver`` replaces the frontier solver that
     ``engine``, ``net`` and ``net_compute_dtype`` would build."""
-    if mdp_depth != 2:
+    batched = mdp_depth == 2
+    if engine != "plain" and not batched:
         raise NotImplementedError(
-            "only the batched depth-2 sampled evaluation is ported "
-            f"(mdp_depth == 2), not mdp_depth = {mdp_depth}"
-        )
+            f"engine={engine!r} solves depth-2 subgames (mdp_depth == 2), "
+            f"not mdp_depth = {mdp_depth}; other depths take the plain "
+            "engine, one repeat at a time")
     ctx = full_tree_context(game, dtype, device)
     sub_params = params.replace(max_depth=mdp_depth)
     if max_chunk is None:
@@ -205,18 +210,26 @@ def sampled_eval(
     # One frontier solver across all seed blocks, of uniform full size:
     # the power-of-two report boundaries are met by the per-seed
     # accumulation below.
-    if fsolver is None:
+    if fsolver is None and batched:
         fsolver = Grid2FrontierSolver(
             game, sub_params, dtype, value_fn, engine=engine, net=net,
             net_compute_dtype=net_compute_dtype, device=device)
     # float32 accumulation, one seed at a time (cheap host adds), so that
     # every power-of-two repeat count gets a report whatever the device
-    # chunking.
-    for lo in range(done, num_repeats, max_chunk):
-        seeds = list(range(lo, min(lo + max_chunk, num_repeats)))
-        strats = compute_sampled_strategies_to_leaf_batch(
-            game, sub_params, value_fn, seeds, dtype=dtype, fsolver=fsolver,
-        ).astype(np.float32)
+    # chunking.  Other depths run the sequential recursion a repeat at a
+    # time.
+    step = max_chunk if batched else 1
+    for lo in range(done, num_repeats, step):
+        seeds = list(range(lo, min(lo + step, num_repeats)))
+        if batched:
+            strats = compute_sampled_strategies_to_leaf_batch(
+                game, sub_params, value_fn, seeds, dtype=dtype,
+                fsolver=fsolver)
+        else:
+            strats = np.stack([compute_sampled_strategy_recursive_to_leaf(
+                game, sub_params, value_fn, seed=seed, dtype=dtype,
+                device=device) for seed in seeds])
+        strats = strats.astype(np.float32)
         reaches = acting_player_reach_batch(ctx, strats).astype(np.float32)
         chunk_saved = False
         for i in range(strats.shape[0]):
@@ -396,3 +409,53 @@ def _load_net(net_path: str, game: LiarsDice, device="cuda"):
         # pickle of something else than the flax layout.
         net = convert.load_net2(net_path, game, device)
     return net_value_fn(net), net
+
+
+def run_eval_from_config(cfg: dict, exp_dir: pathlib.Path,
+                         device="cuda") -> dict:
+    """The ``task: eval`` entry of ``python -m rebel_tpu_torch.run``:
+    config keys ``env`` (game and subgame parameters) and ``eval``
+    (``net``: ``zero``, ``oracle`` or a checkpoint path; ``subgame_iters``,
+    ``num_repeats``, ``mdp_depth``, ``f64`` (default true), ``resume``,
+    ``regret_summary``).  Solves with the plain engine, as the JAX
+    package's default engine computes; partial results stream into
+    ``exp_dir``."""
+    env = cfg.get("env", {})
+    game = LiarsDice(num_dice=env.get("num_dice", 1),
+                     num_faces=env.get("num_faces", 4))
+    sp = env.get("subgame_params", {})
+    base_params = SubgameSolvingParams(
+        num_iters=sp.get("num_iters", 1024),
+        max_depth=sp.get("max_depth", 2),
+        linear_update=sp.get("linear_update", True),
+        use_cfr=sp.get("use_cfr", False),
+    )
+    ev = cfg.get("eval", {})
+    net_path = ev.get("net", None)
+    dtype = torch.float64 if ev.get("f64", True) else torch.float32
+    value_fn = None
+    if net_path == "zero":
+        from rebel_tpu_torch.nets.value_nets import zero_value_fn
+
+        value_fn = zero_value_fn(game)
+    elif net_path == "oracle":
+        from rebel_tpu_torch.nets.value_nets import make_oracle_value_fn
+
+        value_fn = make_oracle_value_fn(game, base_params, dtype=dtype,
+                                        device=device)
+    elif net_path:
+        value_fn = _load_net(net_path, game, device)[0]
+    solver_tag = "cfr" if base_params.use_cfr else "fp"
+    return run_eval(
+        game, base_params, value_fn,
+        subgame_iters=ev.get("subgame_iters", 1024),
+        num_repeats=ev.get("num_repeats", 0),
+        mdp_depth=ev.get("mdp_depth", base_params.max_depth),
+        dtype=dtype,
+        partial_path=pathlib.Path(exp_dir)
+        / f"eval.{game.num_dice}x{game.num_faces}-{solver_tag}.partial",
+        resume=bool(ev.get("resume", False)),
+        regret_summary_report=bool(ev.get("regret_summary", True)),
+        net_name=net_path if isinstance(net_path, str) else None,
+        device=device,
+    )

@@ -60,7 +60,8 @@ def decode_query_arrays(game: LiarsDice, queries: torch.Tensor):
 def make_oracle_value_fn(game: LiarsDice, params: SubgameSolvingParams,
                          dtype=torch.float32, device="cuda"):
     """Ground-truth oracle: a full-depth solve per query on a masked
-    supertree (one static topology covers every queried root state)."""
+    supertree (one static topology covers every queried root state).
+    Returns values in ``dtype``, the solve's, whatever the queries'."""
     from rebel_tpu_torch.solving.solver import build_solver
 
     ctx = SolverContext(game=game, tree=build_supertree(game, None),
@@ -76,6 +77,6 @@ def make_oracle_value_fn(game: LiarsDice, params: SubgameSolvingParams,
         idx = traverser[..., None, None].expand(*traverser.shape, 1,
                                                 game.num_hands)
         out = torch.gather(state.root_values_means, -2, idx).squeeze(-2)
-        return out.to(device=queries.device, dtype=queries.dtype)
+        return out.to(device=queries.device)
 
     return value_fn

@@ -76,6 +76,13 @@ class RootCtx(NamedTuple):
         )
 
 
+def broadcast_shapes(*shapes) -> torch.Size:
+    """``torch.broadcast_shapes`` for concrete shapes, without its
+    symbolic-shape machinery (a tenth of a solver step's host time on
+    small trees)."""
+    return torch.Size(np.broadcast_shapes(*shapes))
+
+
 def ordered_sum(x: torch.Tensor, dim: int, keepdim: bool = False):
     """Sum along a short axis, adding the entries one after another in
     index order.  ``Tensor.sum`` reduces in blocks whose order depends on
@@ -257,7 +264,7 @@ class SolverContext:
         Descending the tree, multiply by the acting player's strategy
         ``[*b, N, H, A]`` on the edges ``player`` owns, and copy on the
         others.  ``beliefs_p [*b, H]``."""
-        batch = torch.broadcast_shapes(
+        batch = broadcast_shapes(
             strategy.shape[:-3], beliefs_p.shape[:-1], root.player.shape)
         # [*b, N * A, H]: row n * A + a holds strategy[n, :, a].
         sT = strategy.transpose(-1, -2).flatten(-3, -2)
@@ -309,7 +316,7 @@ class SolverContext:
             parts[j] = parts[j] + parts[j + 1]
         cum = torch.stack(parts, dim=-1)
         left = torch.clamp(quantities[..., None] - own, 0, D)
-        batch = torch.broadcast_shapes(cum.shape[:-1], left.shape[:-1])
+        batch = broadcast_shapes(cum.shape[:-1], left.shape[:-1])
         p_win = torch.gather(cum.expand(*batch, D + 1), -1,
                              left.expand(*batch, self.H))
         if self.terminal_f32_parity:

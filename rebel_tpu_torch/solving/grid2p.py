@@ -94,6 +94,36 @@ def mlp_flops_per_lane_iter(game: LiarsDice, n_hidden: int,
     return len(pseudo_leaf_pairs(game)) * per_query
 
 
+def nonet_ops_per_lane_iter(game: LiarsDice, use_cfr: bool) -> float:
+    """Arithmetic operations of one lane-iteration of the fused solve
+    outside the MLP (one per add, multiply, divide, compare or max), as
+    the algorithm needs them, over the level-0 rows ``L0 = A * H`` and the
+    level-1 grid ``L1 = A * A * H``:
+
+    * reach grids: the acting strategy times the belief, times the legal
+      mask, ``2 (L0 + L1)``;
+    * terminal values of the root's and the ``A`` level-2 liar calls, each
+      ``2 H (D + 1)`` to bucket the opponent's mass by match count, ``D``
+      suffix sums and ``3 H`` for the mass and ``2 p - mass``;
+    * backup: CFR ``4 (L0 + L1)`` (the strategy-weighted or summed child
+      values and the regret increments), FP ``2 (L0 + L1)`` (a max or a
+      sum over children);
+    * update, on the traverser's level only, so half of ``L0 + L1`` an
+      iteration on average: CFR 10 a cell (regret add, floor, mask, row
+      sum, divide, discount compare and multiply, average-sum multiply,
+      reach multiply and add), FP 5 (reach under the best response, sum
+      add, linear decay, row sum, divide);
+    * the running mean of the root values, ``3 H``.
+    """
+    A, H, D = game.num_actions, game.num_hands, game.total_num_dice
+    cells = A * H + A * A * H
+    reach = 2 * cells
+    terminal = (1 + A) * (2 * H * (D + 1) + D + 3 * H)
+    backup = (4 if use_cfr else 2) * cells
+    update = (10 if use_cfr else 5) * cells / 2
+    return reach + terminal + backup + update + 3 * H
+
+
 def gelu_erf(x: torch.Tensor) -> torch.Tensor:
     """GELU with erf from the Abramowitz-Stegun 7.1.26 polynomial
     (|erf err| < 1.5e-7): the kernel's f32-path GELU."""

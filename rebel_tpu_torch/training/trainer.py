@@ -1,5 +1,5 @@
-"""Self-play trainer (CFR or fictitious-play subgames): generation and
-learning on one card.
+"""Self-play trainer (CFR or fictitious-play subgames): generation,
+learning, in-training exploitability and checkpoints on one card.
 
 Counterpart of ``rebel_tpu/training/trainer.py`` (single-process path).
 Generation and learning share one live net, so actors always use the
@@ -7,54 +7,123 @@ learner's current weights, and the replay ring never leaves the device.
 
 Kept semantics:
 
-* custom huber loss ``|x|>1 ? 2|x|-1 : x^2``, mean over hands then batch;
-* Adam, lr 3e-4, global-norm clip 5.0 with optax's rule (scale by
+* custom huber loss ``|x|>1 ? 2|x|-1 : x^2`` (or the squared error),
+  mean over hands then batch;
+* the optimizers ``adam``, ``sgd`` (momentum), ``radam`` and ``ralamb``
+  with optax's update rules, behind optax's global-norm clip (scale by
   ``clip / norm`` when ``norm >= clip``; torch's ``clip_grad_norm_``
   divides by ``norm + 1e-6`` instead, so it is not used);
-* lr halves every ``decrease_lr_every`` epochs at most
-  ``decrease_lr_times`` times (a falsy count means unlimited halvings);
-* epoch = ``train_epoch_size / train_batch_size`` steps;
+* lr 3e-4 halving every ``decrease_lr_every`` epochs at most
+  ``decrease_lr_times`` times (a falsy count means unlimited halvings),
+  applied per step;
+* epoch = ``train_epoch_size / train_batch_size`` steps on uniform or
+  prioritized replay samples;
 * burn-in until the ring holds two batches, then train only while
   ``num_add * train_gen_ratio >= train_epoch_size * (epoch + 1)``;
-* per-last-action loss buckets.
+* per-last-action loss buckets and the JAX package's metric names and
+  definitions, written one line per epoch to ``metrics.jsonl``;
+* validation snapshots of the ring (losses at checkpoint epochs), dataset
+  dumps and preload in the reference binary format, purging, the
+  ``benchmark_data_gen`` and ``fake_training`` modes, the stall watchdog;
+* every ``checkpoint_every`` epochs a full-state checkpoint
+  (``ckpt/epoch{N}.ckpt``: net, optimizer, step counts, replay ring,
+  episodes, generator state; a resumed run continues the same stream) and
+  a ``ckpt/epoch{N}.params`` export in the JAX package's format, which
+  both packages' evaluations read;
+* every ``exploit_every`` epochs the exploitability of the recursive
+  strategy with the live net (``exploitability_last``), of the
+  reach-weighted average of ``eval_num_repeats`` sampled strategies
+  (``exploitability_avg``) and, with ``eval_mse``, the net's value errors.
 
-The config is built in code (no yaml needed on the card).
+Files are written only when ``out_dir`` is given.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import logging
+import math
+import pathlib
+import pickle
 import time
 
 import torch
 
 from rebel_tpu_torch.games.liars_dice import LiarsDice
+from rebel_tpu_torch.nets import convert
 from rebel_tpu_torch.nets.cfv_net import CFVNet
 from rebel_tpu_torch.selfplay import replay as rb
 from rebel_tpu_torch.selfplay.fast_runner import make_engine
 from rebel_tpu_torch.selfplay.runner import EpisodeState, RecursiveSolvingParams
+from rebel_tpu_torch.utils.watchdog import StallWatchdog
+
+log = logging.getLogger(__name__)
+
+# Epoch metrics the port writes beyond the JAX package's names: the parts
+# of an exploit evaluation and the checkpoint write.
+PORT_METRICS = ("timing/exploit_recursion", "timing/exploit_full_tree",
+                "timing/exploit_sampled", "timing/exploit_mse",
+                "timing/checkpoint", "checkpoint/bytes")
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
     env: RecursiveSolvingParams = RecursiveSolvingParams()
+    # Model.
     n_hidden: int = 256
     n_layers: int = 2
     use_layer_norm: bool = True
+    # Optimizer: 'adam' | 'sgd' | 'radam' | 'ralamb' (RAdam with LAMB's
+    # per-tensor trust ratio); ``momentum`` is sgd's.
     lr: float = 3e-4
     decrease_lr_every: int = 400
     decrease_lr_times: int = 2
     grad_clip: float = 5.0
+    loss: str = "huber"
+    optimizer: str = "adam"
+    momentum: float = 0.9
+    # Data.
     train_epoch_size: int = 25600
     train_batch_size: int = 512
     replay_capacity: int = 2_000_000
+    replay_alpha: float = 1.0
+    replay_beta: float = 1.0
+    use_priority: bool = False
     train_gen_ratio: int = 4
     max_epochs: int = 10000
-    selfplay_batch: int = 1024
+    # Self-play engine: 'auto' (at depth 2 the fused solve, 'kernel'; else
+    # 'generic') | 'kernel' ('pallas' in the JAX package's configs, which
+    # config.py maps) | 'batched' | 'generic'.  'fast' is not ported yet.
+    engine: str = "auto"
     # bfloat16: bf16 matmul operands with f32 accumulation and the fast
-    # GELU inside the solve; float32 is the parity path.
+    # GELU inside the fused solve; float32 is the parity path.
     net_compute_dtype: torch.dtype = torch.float32
+    selfplay_batch: int = 1024  # lockstep lanes
+    gen_chunk_steps: int = 1  # engine steps per generation call
     seed: int = 0
+    # Checkpoints: full-state files kept (the .params exports all are).
+    checkpoint_every: int = 10
+    keep_checkpoints: int = 3
+    # Exit 87 with a STALLED file when no epoch completes for this long
+    # (utils/watchdog.py); 0 = off.
+    stall_timeout_s: float = 0.0
+    exploit_every: int = 20
+    exploit: bool = True
+    eval_mse: bool = False
+    eval_num_repeats: int = 8  # sampled strategies in exploitability_avg
+    create_validation_set_every: int = 100
+    validation_batches: int = 16
+    train_preload: str | None = None  # a dataset file read before burn-in
+    # benchmark_data_gen: generate for about this many seconds, log the
+    # "BENCHMARK size ... speed ..." line and return without training;
+    # fake_training: the whole epoch loop without the train steps.
+    benchmark_data_gen: float = 0.0
+    fake_training: bool = False
+    dump_dataset_every_epochs: int = 0
+    purging_epochs: tuple = ()
+    purging_share_keep: float = 0.0
+    solver_dtype: torch.dtype = torch.float32
 
 
 def lr_schedule(cfg: TrainerConfig, steps_per_epoch: int):
@@ -97,66 +166,160 @@ def bucket_metrics(game: LiarsDice, counts, loss_sums, val_sums) -> dict:
     return out
 
 
+# ------------------------------------------------------------ optimizers
+class RAdam(torch.optim.Optimizer):
+    """``radam``, and with ``trust_ratio`` ``ralamb``, with optax's update
+    rules (``optax.radam``; ``scale_by_radam`` -> ``scale_by_trust_ratio``
+    -> the lr), where torch's ``RAdam`` differs: the rectification is
+    applied when ``rho_t >= threshold`` and otherwise the bias-corrected
+    first moment is the update, ``eps`` is added outside the square root,
+    and LAMB's trust ratio ``|param| / |update|`` is taken per parameter
+    tensor (1 where either norm is 0).  The moments follow optax's
+    expressions term for term; ``rho_t``, the rectification and the bias
+    corrections are host scalars in float64.  Set ``lr`` in the param
+    group before each step."""
+
+    def __init__(self, params, lr: float = 1e-3, trust_ratio: bool = False,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 threshold: float = 5.0):
+        super().__init__(params, dict(lr=lr, trust_ratio=trust_ratio, b1=b1,
+                                      b2=b2, eps=eps, threshold=threshold))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2, eps = group["b1"], group["b2"], group["eps"]
+            ro_inf = 2.0 / (1.0 - b2) - 1.0
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                st = self.state[p]
+                if not st:
+                    st["count"] = 0
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+                st["mu"] = (1 - b1) * g + b1 * st["mu"]
+                st["nu"] = (1 - b2) * (g * g) + b2 * st["nu"]
+                st["count"] += 1
+                t = st["count"]
+                u = st["mu"] / (1 - b1**t)
+                b2t = b2**t
+                ro = ro_inf - 2 * t * b2t / (1 - b2t)
+                if ro >= group["threshold"]:
+                    r = math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
+                                  / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
+                    u = r * u / (torch.sqrt(st["nu"] / (1 - b2t)) + eps)
+                if group["trust_ratio"]:
+                    p_norm, u_norm = p.norm(), u.norm()
+                    u = u * torch.where((p_norm == 0) | (u_norm == 0), 1.0,
+                                        p_norm / u_norm)
+                p.add_(u * -group["lr"])
+
+
+def make_optimizer(cfg: TrainerConfig, params) -> torch.optim.Optimizer:
+    """The optimizer of ``cfg.optimizer`` over ``params``; its lr is set
+    per step from :func:`lr_schedule`.  torch's ``Adam`` and ``SGD``
+    (``dampening=0``: ``buf = g + momentum * buf``) compute optax's
+    ``adam`` and ``sgd``; ``radam`` and ``ralamb`` are :class:`RAdam`."""
+    name = cfg.optimizer.lower()
+    if name == "adam":
+        return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999),
+                                eps=1e-8)
+    if name == "sgd":
+        return torch.optim.SGD(params, lr=cfg.lr, momentum=cfg.momentum,
+                               dampening=0.0)
+    if name in ("radam", "ralamb"):
+        return RAdam(params, lr=cfg.lr, trust_ratio=name == "ralamb")
+    raise ValueError(f"Unknown optimizer: {cfg.optimizer!r}")
+
+
+def engine_kind(cfg: TrainerConfig) -> str:
+    """The :func:`~rebel_tpu_torch.selfplay.fast_runner.make_engine` kind
+    of ``cfg.engine``: ``auto`` gives the fused solve at depth 2, else the
+    generic engine."""
+    if cfg.engine != "auto":
+        return cfg.engine
+    return "kernel" if cfg.env.subgame_params.max_depth == 2 else "generic"
+
+
+# --------------------------------------------------------------- trainer
 class Trainer:
-    """Owns the net, optimizer, replay ring, episodes and generators.
+    """Owns the net, optimizer, replay ring, episodes and generator.
 
     ``device`` defaults to the card; pass ``"cpu"`` to run the plain
-    versions.  The engine comes from ``fast_runner.make_engine``: the fused
-    solve (kind ``"kernel"``) for depth-2 subgames, the generic engine for
-    any other depth; ``engine`` replaces it.
-    State is updated in place (the reference's immutable ``TrainState``
-    becomes attributes here)."""
+    versions.  The engine comes from ``fast_runner.make_engine`` by
+    :func:`engine_kind`; ``engine`` replaces it.  ``out_dir`` receives
+    ``metrics.jsonl``, ``heartbeat``, checkpoints and dumps; ``None``
+    writes nothing.  State is updated in place (the JAX package's
+    immutable ``TrainState`` becomes attributes here)."""
 
-    def __init__(self, cfg: TrainerConfig, device="cuda", engine=None):
+    def __init__(self, cfg: TrainerConfig, device="cuda", engine=None,
+                 out_dir: str | pathlib.Path | None = None):
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not "
                                "available")
+        self.out_dir = None if out_dir is None else pathlib.Path(out_dir)
         self.game: LiarsDice = cfg.env.game
-        kind = ("kernel" if cfg.env.subgame_params.max_depth == 2
-                else "generic")
         self.engine = engine or make_engine(
-            cfg.env, kind=kind, net_compute_dtype=cfg.net_compute_dtype)
+            cfg.env, dtype=cfg.solver_dtype, kind=engine_kind(cfg),
+            net_compute_dtype=cfg.net_compute_dtype)
         init_gen = torch.Generator().manual_seed(cfg.seed)
         self.net = CFVNet(self.game, cfg.n_hidden, cfg.n_layers,
                           cfg.use_layer_norm, generator=init_gen
                           ).to(self.device)
-        self.opt = torch.optim.Adam(self.net.parameters(), lr=cfg.lr,
-                                    eps=1e-8)
+        self.opt = make_optimizer(cfg, self.net.parameters())
         self.steps_per_epoch = cfg.train_epoch_size // cfg.train_batch_size
         self.schedule = lr_schedule(cfg, self.steps_per_epoch)
         self.gen = torch.Generator(self.device).manual_seed(cfg.seed + 1)
         self.replay = rb.create(cfg.replay_capacity, self.game.query_size,
                                 self.game.num_hands, self.device)
         self.episodes = EpisodeState.initial_batch(
-            self.game, cfg.selfplay_batch, self.device
-        )
+            self.game, cfg.selfplay_batch, self.device, cfg.solver_dtype)
         self.epoch = 0
         self.step = 0
         self.gen_steps = 0
+        self.burn_in_s = 0.0  # host seconds of the last run's burn-in
+        self._eval_mse_broken = False
 
     # ------------------------------------------------------------ steps
     def gen_chunk(self) -> torch.Tensor:
-        """One lockstep engine step; pushes ``2 * selfplay_batch``
-        examples.  Returns the number of episodes that ended."""
-        eps, out = self.engine.batch_step(self.episodes, self.net, self.gen)
-        self.episodes = eps
-        rb.add(self.replay, out.queries.reshape(-1, self.game.query_size),
-               out.values.reshape(-1, self.game.num_hands))
-        self.gen_steps += 1
-        return out.ended.sum()
+        """``gen_chunk_steps`` lockstep engine steps; each pushes
+        ``2 * selfplay_batch`` examples with priority 1.  Returns the
+        number of episodes that ended."""
+        ended = 0
+        for _ in range(self.cfg.gen_chunk_steps):
+            eps, out = self.engine.batch_step(self.episodes, self.net,
+                                              self.gen)
+            self.episodes = eps
+            rb.add(self.replay,
+                   out.queries.reshape(-1, self.game.query_size),
+                   out.values.reshape(-1, self.game.num_hands), 1.0,
+                   self.cfg.replay_alpha)
+            self.gen_steps += 1
+            ended = ended + out.ended.sum()
+        return ended
 
     def loss_fn(self, queries, targets):
-        per_ex = huber(targets - self.net(queries)).mean(-1)
+        err = targets - self.net(queries)
+        per_ex = (huber(err) if self.cfg.loss == "huber"
+                  else err * err).mean(-1)
         return per_ex.mean(), per_ex
 
     def train_step(self, indices: torch.Tensor | None = None) -> dict:
-        """One Adam step on a uniform replay sample (``indices`` replaces
-        the draw).  Returns device tensors; nothing waits for the card."""
+        """One clipped optimizer step on a replay sample, prioritized with
+        ``use_priority``, else uniform (``indices`` replaces the uniform
+        draw).  Returns device tensors; nothing waits for the card."""
         cfg = self.cfg
-        sample = rb.sample_uniform(self.replay, self.gen,
-                                   cfg.train_batch_size, indices)
+        if cfg.use_priority and indices is None:
+            sample = rb.sample_prioritized(self.replay, self.gen,
+                                           cfg.train_batch_size,
+                                           cfg.replay_beta)
+        else:
+            sample = rb.sample_uniform(self.replay, self.gen,
+                                       cfg.train_batch_size, indices)
         loss, per_ex = self.loss_fn(sample.queries, sample.values)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -176,7 +339,6 @@ class Trainer:
         return dict(
             loss=loss.detach(),
             g_norm=g_norm.detach(),
-            lr=lr,
             counts=z().index_add_(0, bucket, torch.ones_like(per_ex)),
             loss_sums=z().index_add_(0, bucket, per_ex.detach()),
             val_sums=z().index_add_(0, bucket, sample.values.sum(-1)),
@@ -186,58 +348,320 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _write_metrics(self, metrics: dict) -> None:
+        if self.out_dir is not None:
+            with open(self.out_dir / "metrics.jsonl", "a") as f:
+                f.write(json.dumps(metrics) + "\n")
+
     # ------------------------------------------------------------ epochs
     def run(self, max_epochs: int | None = None) -> list[dict]:
-        """Burn-in, then epochs of throttled generation and training, up
-        to ``max_epochs``.  Returns one metrics dict per epoch."""
+        """Preload, burn-in, then epochs of throttled generation and
+        training up to ``max_epochs``, with validation, dumps, purging,
+        checkpoints and exploit evaluations at their cadences.  Returns
+        one metrics dict per epoch (one benchmark dict with
+        ``benchmark_data_gen``)."""
         cfg = self.cfg
         max_epochs = max_epochs or cfg.max_epochs
         batch = cfg.train_batch_size
-        all_metrics = []
+        if self.out_dir is not None:
+            self.out_dir.mkdir(parents=True, exist_ok=True)
+        if cfg.train_preload and self.replay.num_add == 0:
+            log.info("Preloading dataset from %s", cfg.train_preload)
+            rb.load_into(self.replay, cfg.train_preload)
+        # Throughput baselines: rows at entry (a preload or a resume) and
+        # epochs run in this process.
+        num_add_base = self.replay.num_add
+        epoch_base = self.epoch
+
+        if cfg.benchmark_data_gen:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < cfg.benchmark_data_gen:
+                self.gen_chunk()
+            self._sync()
+            size = self.replay.num_add - num_add_base
+            elapsed = time.perf_counter() - t0
+            log.info("BENCHMARK size %s speed %.2f", size, size / elapsed)
+            metrics = {"benchmark/examples": size,
+                       "benchmark/examples_per_s": size / elapsed,
+                       "benchmark/seconds": elapsed}
+            self._write_metrics(metrics)
+            return [metrics]
+
         t0 = time.perf_counter()
         while self.replay.size < 2 * batch:
             self.gen_chunk()
         self._sync()
-        burn_in_s = time.perf_counter() - t0
-        for epoch in range(self.epoch, max_epochs):
-            t0 = time.perf_counter()
-            gens0 = self.gen_steps
-            while cfg.train_gen_ratio and (
-                self.replay.num_add * cfg.train_gen_ratio
-                < cfg.train_epoch_size * (epoch + 1)
-            ):
-                self.gen_chunk()
-            self._sync()
-            gen_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            stats = [self.train_step() for _ in range(self.steps_per_epoch)]
-            self._sync()
-            train_s = time.perf_counter() - t0
-            self.epoch = epoch + 1
-            host = lambda k: torch.stack([s[k] for s in stats]).cpu()
-            counts = host("counts").sum(0).tolist()
-            loss_sums = host("loss_sums").sum(0).tolist()
-            val_sums = host("val_sums").sum(0).tolist()
-            g_norm = host("g_norm")
-            metrics = {
-                "epoch": epoch,
-                "loss/train": float(host("loss").mean()),
-                "optim/lr": stats[-1]["lr"],
-                "optim/grad_max": float(g_norm.max()),
-                "optim/grad_mean": float(g_norm.mean()),
-                "optim/grad_clip_ratio": float(
-                    (g_norm > cfg.grad_clip).float().mean()),
-                "buffer/size": self.replay.size,
-                "buffer/added": self.replay.num_add,
-                "gen/steps": self.gen_steps - gens0,
-                "gen/examples": 2 * cfg.selfplay_batch
-                * (self.gen_steps - gens0),
-                "timing/burn_in": burn_in_s if epoch == 0 else 0.0,
-                "timing/gen": gen_s,
-                "timing/train": train_s,
-                "bps/train": self.steps_per_epoch / max(train_s, 1e-9),
-            }
-            metrics.update(bucket_metrics(self.game, counts, loss_sums,
-                                          val_sums))
-            all_metrics.append(metrics)
+        self.burn_in_s = time.perf_counter() - t0
+
+        gen_time = train_time = 0.0
+        val_sets = []
+        all_metrics = []
+        wd = StallWatchdog(cfg.stall_timeout_s, self.out_dir).start()
+        try:
+            for epoch in range(self.epoch, max_epochs):
+                wd.alive(epoch)
+                if (cfg.create_validation_set_every
+                        and epoch % cfg.create_validation_set_every == 0):
+                    s = rb.sample_uniform(self.replay, self.gen,
+                                          cfg.validation_batches * batch)
+                    val_sets.append((f"valid_snapshot_{epoch:04d}",
+                                     s.queries, s.values))
+                if (self.out_dir is not None and cfg.dump_dataset_every_epochs
+                        and epoch % cfg.dump_dataset_every_epochs == 0):
+                    dump_dir = self.out_dir / "dumped_data"
+                    dump_dir.mkdir(parents=True, exist_ok=True)
+                    rb.save(self.replay, dump_dir / f"data_{epoch:03d}.dat")
+
+                t0 = time.perf_counter()
+                while cfg.train_gen_ratio and (
+                        self.replay.num_add * cfg.train_gen_ratio
+                        < cfg.train_epoch_size * (epoch + 1)):
+                    self.gen_chunk()
+                self._sync()
+                gen_time += time.perf_counter() - t0
+
+                t0 = time.perf_counter()
+                if cfg.fake_training:
+                    self.epoch = epoch + 1
+                    metrics = {"epoch": epoch,
+                               "buffer/size": self.replay.size,
+                               "buffer/added": self.replay.num_add}
+                else:
+                    stats = [self.train_step()
+                             for _ in range(self.steps_per_epoch)]
+                    self._sync()
+                    self.epoch = epoch + 1
+                    metrics = self._epoch_metrics(stats, epoch)
+                    metrics["bps/train"] = self.steps_per_epoch / max(
+                        time.perf_counter() - t0, 1e-9)
+                    metrics["bps/train_examples"] = metrics["bps/train"] \
+                        * batch
+                train_time += time.perf_counter() - t0
+                metrics["bps/gen"] = ((self.replay.num_add - num_add_base)
+                                      / max(gen_time, 1e-9) / batch)
+                metrics["bps/gen_examples"] = metrics["bps/gen"] * batch
+                epochs_run = epoch - epoch_base + 1
+                metrics["timing/gen"] = gen_time / epochs_run
+                metrics["timing/train"] = train_time / epochs_run
+
+                if cfg.purging_epochs and (epoch + 1) in cfg.purging_epochs:
+                    rb.pop_until(self.replay, max(
+                        2 * batch,
+                        int(cfg.purging_share_keep * self.replay.size)))
+
+                if epoch % cfg.checkpoint_every == 0:
+                    for name, vq, vv in val_sets:
+                        with torch.no_grad():
+                            metrics[f"loss/{name}"] = float(
+                                self.loss_fn(vq, vv)[0])
+                    if self.out_dir is not None:
+                        t0 = time.perf_counter()
+                        metrics["checkpoint/bytes"] = \
+                            self.save_checkpoint(epoch)
+                        metrics["timing/checkpoint"] = \
+                            time.perf_counter() - t0
+                if (cfg.exploit and cfg.exploit_every
+                        and epoch % cfg.exploit_every == 0):
+                    t0 = time.perf_counter()
+                    metrics.update(self.evaluate())
+                    metrics["timing/exploit"] = time.perf_counter() - t0
+
+                log.info(
+                    "[Train] epoch %d loss %.6f exploit %s lr %.2e", epoch,
+                    metrics.get("loss/train", float("nan")),
+                    metrics.get("exploitability_avg",
+                                metrics.get("exploitability_last", "-")),
+                    metrics.get("optim/lr", float("nan")))
+                self._write_metrics(metrics)
+                all_metrics.append(metrics)
+                if self.out_dir is not None:
+                    # Liveness for the experiment-dir status: without it a
+                    # healthy run reads DEAD after 300 s.
+                    (self.out_dir / "heartbeat").touch()
+        finally:
+            wd.stop()
         return all_metrics
+
+    def _epoch_metrics(self, stats: list[dict], epoch: int) -> dict:
+        cfg = self.cfg
+        host = lambda k: torch.stack([s[k] for s in stats]).cpu()
+        g_norm = host("g_norm")
+        metrics = {
+            "epoch": epoch,
+            "optim/lr": lr_schedule(cfg, 1)(epoch),
+            "loss/train": float(host("loss").mean()),
+            "optim/grad_max": float(g_norm.max()),
+            "optim/grad_mean": float(g_norm.mean()),
+            "optim/grad_clip_ratio": float(
+                (g_norm >= cfg.grad_clip - 1e-5).float().mean()),
+            "buffer/size": self.replay.size,
+            "buffer/added": self.replay.num_add,
+        }
+        metrics.update(bucket_metrics(
+            self.game, host("counts").sum(0).tolist(),
+            host("loss_sums").sum(0).tolist(),
+            host("val_sums").sum(0).tolist()))
+        return metrics
+
+    # ------------------------------------------------------------- eval
+    def evaluate(self) -> dict:
+        """In-training exploitability with the live net."""
+        return self.evaluate_params(self.net)
+
+    def evaluate_params(self, net: CFVNet) -> dict:
+        """Exploitability of the recursive-to-leaf strategy with ``net``
+        (computed in its own dtype, on queries in the solver's) in the
+        solver's dtype (``exploitability_last``), of the
+        reach-weighted average of ``eval_num_repeats`` sampled strategies
+        (``exploitability_avg``; on the card in float32 through the fused
+        solve with the MLP in float32, else the plain engine) and, with
+        ``eval_mse``, the net's value errors (``eval_mse/net_reach``,
+        ``eval_mse/fp_reach``; switched off for the rest of the run if
+        they fail).  Also the host seconds of each part."""
+        from rebel_tpu_torch.eval.recursive import (
+            compute_strategy_recursive_to_leaf,
+        )
+        from rebel_tpu_torch.eval.recursive_eval import (
+            full_solve,
+            sampled_eval,
+        )
+        from rebel_tpu_torch.eval.stats import eval_net
+        from rebel_tpu_torch.nets.value_nets import net_value_fn
+        from rebel_tpu_torch.solving.exploitability import (
+            compute_exploitability,
+            full_tree_context,
+        )
+
+        sp = self.cfg.env.subgame_params
+        dtype, dev = self.cfg.solver_dtype, self.device
+        value_fn = net_value_fn(net)
+        out = {}
+        t0 = time.perf_counter()
+        strategy = compute_strategy_recursive_to_leaf(
+            self.game, sp, value_fn, dtype=dtype, device=dev)
+        t1 = time.perf_counter()
+        ctx = full_tree_context(self.game, dtype, dev)
+        out["exploitability_last"] = compute_exploitability(ctx, strategy)
+        out["timing/exploit_recursion"] = t1 - t0
+        out["timing/exploit_full_tree"] = time.perf_counter() - t1
+        if self.cfg.eval_num_repeats > 0:
+            t0 = time.perf_counter()
+            kernel = (dev.type == "cuda" and dtype == torch.float32
+                      and sp.max_depth == 2)
+            _, reports = sampled_eval(
+                self.game, sp, value_fn, self.cfg.eval_num_repeats,
+                full_strategy=None, mdp_depth=sp.max_depth, dtype=dtype,
+                progress=False, engine="kernel" if kernel else "plain",
+                net=net if kernel else None,
+                net_compute_dtype=torch.float32 if kernel else None,
+                device=dev)
+            out["exploitability_avg"] = reports[-1]["exploitability"]
+            out["timing/exploit_sampled"] = time.perf_counter() - t0
+        if self.cfg.eval_mse and not self._eval_mse_broken:
+            t0 = time.perf_counter()
+            # A diagnostic must not take the run down with it.
+            try:
+                full_strategy, _, _ = full_solve(self.game, sp, dtype,
+                                                 progress=False, device=dev)
+                for name, by_net in (("net_reach", True),
+                                     ("fp_reach", False)):
+                    out[f"eval_mse/{name}"] = eval_net(
+                        self.game, strategy, full_strategy,
+                        mdp_depth=sp.max_depth, fp_iters=sp.num_iters,
+                        value_fn=value_fn, traverse_by_net=by_net,
+                        dtype=dtype, device=dev)
+            except Exception:
+                log.exception("eval_mse diagnostics failed; disabling for "
+                              "the rest of this run")
+                self._eval_mse_broken = True
+            out["timing/exploit_mse"] = time.perf_counter() - t0
+        return out
+
+    # ------------------------------------------------------ checkpoints
+    def state_dict(self) -> dict:
+        """The full training state; tensors stay where they are."""
+        rp, ep = self.replay, self.episodes
+        return {
+            "epoch": self.epoch, "step": self.step,
+            "gen_steps": self.gen_steps,
+            "net": self.net.state_dict(),
+            "optimizer": self.opt.state_dict(),
+            "replay": {"queries": rp.queries, "values": rp.values,
+                       "priorities": rp.priorities, "head": rp.head,
+                       "size": rp.size, "num_add": rp.num_add},
+            "episodes": ep._asdict(),
+            "generator": self.gen.get_state(),
+            "generator_device": self.gen.device.type,
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict`'s output in place.  A generator
+        state of another device type (a card checkpoint resumed on the
+        CPU) cannot be restored: the stream is reseeded past the epoch,
+        with a warning."""
+        self.net.load_state_dict(state["net"])
+        self.opt.load_state_dict(state["optimizer"])
+        r = state["replay"]
+        if r["queries"].shape != self.replay.queries.shape:
+            raise ValueError(
+                f"checkpoint replay ring {tuple(r['queries'].shape)} does "
+                f"not match this config's {tuple(self.replay.queries.shape)}")
+        for k in ("queries", "values", "priorities"):
+            getattr(self.replay, k).copy_(r[k])
+        self.replay.head, self.replay.size, self.replay.num_add = (
+            int(r["head"]), int(r["size"]), int(r["num_add"]))
+        self.episodes = EpisodeState(**{
+            k: v.to(self.device) for k, v in state["episodes"].items()})
+        self.epoch = int(state["epoch"])
+        self.step = int(state["step"])
+        self.gen_steps = int(state["gen_steps"])
+        if state["generator_device"] == self.gen.device.type:
+            self.gen.set_state(state["generator"].cpu())
+        else:
+            log.warning("checkpoint generator is a %s one; reseeding the "
+                        "%s generator past epoch %d",
+                        state["generator_device"], self.gen.device.type,
+                        self.epoch)
+            self.gen.manual_seed(self.cfg.seed + 1 + self.epoch)
+
+    def save_checkpoint(self, epoch: int) -> int:
+        """``ckpt/epoch{epoch}.ckpt`` (full state, ``torch.save``) and
+        ``ckpt/epoch{epoch}.params`` (a pickle of the net's flax parameter
+        tree of numpy arrays, the JAX package's export format), each
+        written to a temporary name and then renamed, so that a kill
+        mid-write leaves no truncated newest file; prunes full-state files
+        beyond ``keep_checkpoints``.  Returns the bytes written."""
+        ckpt_dir = self.out_dir / "ckpt"
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+        ckpt, params = (ckpt_dir / f"epoch{epoch}.ckpt",
+                        ckpt_dir / f"epoch{epoch}.params")
+        tmp = ckpt_dir / f".epoch{epoch}.ckpt.tmp"
+        torch.save(self.state_dict(), tmp)
+        tmp.replace(ckpt)
+        tmp = ckpt_dir / f".epoch{epoch}.params.tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(convert.to_flax(self.net.state_dict()), f)
+        tmp.replace(params)
+        if self.cfg.keep_checkpoints:
+            for old in checkpoints(ckpt_dir)[:-self.cfg.keep_checkpoints]:
+                old.unlink()
+        return ckpt.stat().st_size + params.stat().st_size
+
+    def load_checkpoint(self, path) -> None:
+        """Resume from a :meth:`save_checkpoint` file (in place)."""
+        self.load_state_dict(torch.load(path, map_location=self.device,
+                                        weights_only=True))
+
+
+def checkpoints(ckpt_dir: pathlib.Path) -> list[pathlib.Path]:
+    """Full-state checkpoints ``epoch<N>.ckpt`` in ``ckpt_dir``, oldest
+    first."""
+    if not ckpt_dir.exists():
+        return []
+    return sorted((p for p in ckpt_dir.glob("epoch*.ckpt")
+                   if p.stem[5:].isdigit()), key=lambda p: int(p.stem[5:]))
+
+
+def load_params(path, game: LiarsDice, device="cuda") -> CFVNet:
+    """The net of a ``.params`` export (either package's)."""
+    return convert.load_params_net(path, game, device)

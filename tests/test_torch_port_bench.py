@@ -153,6 +153,18 @@ def test_flop_count_equals_the_jax_bench(dice, faces):
         grid2p.mlp_flops_per_lane_iter(LiarsDice(dice, faces), 128, 3))
 
 
+@pytest.mark.parametrize("use_cfr,want", [(True, 4352), (False, 2732)],
+                         ids=["cfr", "fp"])
+def test_no_net_operation_count(use_cfr, want):
+    """The arithmetic of a lane-iteration outside the MLP at 1x4f (A=9,
+    H=4, D=2): reach grids 720, terminal values 10 x 38, backup 1440 (CFR)
+    or 720 (FP), update 1800 or 900, running mean 12."""
+    assert grid2p.nonet_ops_per_lane_iter(LiarsDice(1, 4), use_cfr) == want
+    # Linear in the level-1 grid: 2x3f (A=13, H=9) holds 1521 + 117 cells.
+    assert grid2p.nonet_ops_per_lane_iter(LiarsDice(2, 3), use_cfr) > \
+        4 * want
+
+
 def test_watchdog_prints_a_partial_line_with_an_error_key():
     """A run that outlives ``--deadline`` prints one JSON line with an
     ``error`` key and exits 3."""

@@ -592,12 +592,26 @@ def test_run_eval_resume_equals_uninterrupted(tmp_path):
 
 
 def test_sampled_eval_refuses_other_depths():
+    """The kernel engine solves depth-2 subgames only; the plain engine
+    takes other depths through the sequential recursion, as the JAX
+    package's does (same reports at 1e-10 in float64)."""
     game = LiarsDice(1, 2)
     params = SubgameSolvingParams(num_iters=2, max_depth=3, use_cfr=True)
     with pytest.raises(NotImplementedError, match="depth-2"):
         recursive_eval.sampled_eval(game, params,
                                     value_nets.zero_value_fn(game), 1, None,
-                                    mdp_depth=3, device="cpu")
+                                    mdp_depth=3, engine="kernel",
+                                    device="cpu")
+    _, got = recursive_eval.sampled_eval(
+        game, params, value_nets.zero_value_fn(game), 3, None, mdp_depth=3,
+        device="cpu", progress=False)
+    _, want = jeval.sampled_eval(
+        JLiarsDice(1, 2), JParams(num_iters=2, max_depth=3, use_cfr=True),
+        jvn.zero_value_fn(JLiarsDice(1, 2)), 3, None, mdp_depth=3,
+        progress=False)
+    assert [r["repeats"] for r in got] == [r["repeats"] for r in want]
+    for a, b in zip(got, want):
+        assert abs(a["exploitability"] - b["exploitability"]) < 1e-10
     with pytest.raises(ValueError, match="value net"):
         recursive_eval.run_eval(game, params.replace(max_depth=2), None,
                                 subgame_iters=2, num_repeats=1,

@@ -6,6 +6,8 @@ recomputed from its own keys and handed to the port.  Parameters must
 agree at 1e-5 after the same Adam steps on the same rows.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,9 +43,9 @@ def _configs(**kw):
     jcfg, cfg = _cfgs()
     common = dict(n_hidden=16, n_layers=2, train_batch_size=8,
                   train_epoch_size=32, train_gen_ratio=1, replay_capacity=64,
-                  selfplay_batch=8, seed=3, **kw)
-    jt = JTrainerConfig(env=jcfg, engine="pallas", exploit=False,
-                        create_validation_set_every=0, **common)
+                  selfplay_batch=8, seed=3, exploit=False,
+                  create_validation_set_every=0, **kw)
+    jt = JTrainerConfig(env=jcfg, engine="pallas", **common)
     return jt, TrainerConfig(env=cfg, **common)
 
 
@@ -201,3 +203,228 @@ def test_trainer_slice_matches_jax_trainer(tmp_path):
     _assert_params(tr.net, jstate.params, 1e-5)
     assert metrics[0]["loss/train"] == pytest.approx(
         jmetrics[0]["loss/train"], rel=1e-5)
+
+
+# ------------------------------------------------------------ optimizers
+@pytest.mark.parametrize("name", ["adam", "sgd", "radam", "ralamb"])
+def test_optimizers_match_optax(name):
+    """25 steps of a fixed gradient sequence (large and small, so RAdam
+    crosses its rectification threshold) with a changing lr, from a
+    parameter tree with a zero tensor (LAMB's trust ratio is 1 there):
+    float32 parameters at 1e-6."""
+    import optax
+
+    from rebel_tpu.training.trainer import _make_optimizer
+    from rebel_tpu_torch.training.trainer import make_optimizer
+
+    rng = np.random.RandomState(4)
+    init = {"w": rng.randn(6, 5).astype(np.float32),
+            "b": np.zeros(5, np.float32)}
+    grads = [{k: (rng.randn(*v.shape) * 10.0 ** rng.randint(-3, 2)).astype(
+        np.float32) for k, v in init.items()} for _ in range(25)]
+    lrs = [1e-3 * 0.5 ** (i // 10) for i in range(25)]
+    jcfg, cfg = _configs(optimizer=name)
+    opt = _make_optimizer(jcfg, lambda count: jnp.asarray(lrs)[count])
+    jp = jax.tree.map(jnp.asarray, init)
+    state = opt.init(jp)
+    params = [torch.nn.Parameter(torch.as_tensor(init[k].copy()))
+              for k in ("w", "b")]
+    topt = make_optimizer(cfg, params)
+    for g, lr in zip(grads, lrs):
+        upd, state = opt.update(jax.tree.map(jnp.asarray, g), state, jp)
+        jp = optax.apply_updates(jp, upd)
+        for p, k in zip(params, ("w", "b")):
+            p.grad = torch.as_tensor(g[k])
+        for group in topt.param_groups:
+            group["lr"] = lr
+        topt.step()
+    for p, k in zip(params, ("w", "b")):
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]),
+                                   atol=1e-6, rtol=0, err_msg=k)
+    with pytest.raises(ValueError, match="optimizer"):
+        make_optimizer(_configs(optimizer="lion")[1], params)
+
+
+# ----------------------------------------- the epoch loop and the eval
+def _small(use_cfr=False, **kw):
+    """1x3, 16 iterations, a 32x1 net, float64 solver, in both packages."""
+    from rebel_tpu.selfplay.runner import RecursiveSolvingParams as JRSP
+    from rebel_tpu.solving.params import SubgameSolvingParams as JParams
+    from rebel_tpu_torch.selfplay.runner import RecursiveSolvingParams
+    from rebel_tpu_torch.solving.params import SubgameSolvingParams
+
+    sub = dict(num_iters=16, max_depth=2, linear_update=True, use_cfr=use_cfr)
+    env = dict(num_dice=1, num_faces=3, random_action_prob=0.25,
+               sample_leaf=True)
+    common = dict(n_hidden=32, n_layers=1, train_epoch_size=64,
+                  train_batch_size=16, replay_capacity=512, selfplay_batch=8,
+                  max_epochs=1, checkpoint_every=1,
+                  create_validation_set_every=1, exploit_every=1,
+                  eval_mse=True, eval_num_repeats=2)
+    common.update(kw)
+    return (JTrainerConfig(env=JRSP(subgame_params=JParams(**sub), **env),
+                           solver_dtype=jnp.float64, **common),
+            TrainerConfig(env=RecursiveSolvingParams(
+                subgame_params=SubgameSolvingParams(**sub), **env),
+                solver_dtype=torch.float64, **common))
+
+
+def test_epoch_metrics_and_evaluation_equal_jax(tmp_path):
+    """One epoch with validation, checkpoint and exploit evaluation in
+    each package: the same metric names (the port adds the parts of the
+    evaluation and the checkpoint write; the per-action loss and value
+    names depend on the rows drawn).  The JAX package's ``epoch0.params``
+    evaluated by the port's ``evaluate_params`` gives the JAX metrics
+    (FP, float64 solver) at 1e-8; the port's ``.params`` loads through the
+    JAX package's loaders to the port net's outputs at 1e-6."""
+    from rebel_tpu.eval.recursive_eval import _load_net
+    from rebel_tpu.training.trainer import load_params as jload_params
+    from rebel_tpu_torch.training.trainer import PORT_METRICS, load_params
+
+    jcfg, cfg = _small()
+    _, (jm,) = JTrainer(jcfg, out_dir=tmp_path / "jax").run()
+    tr = Trainer(cfg, device="cpu", out_dir=tmp_path / "port")
+    (m,) = tr.run()
+    per_action = lambda keys: {k for k in keys
+                               if k.startswith(("loss/train_", "val/train_"))}
+    assert set(m) - per_action(m) - set(PORT_METRICS) == \
+        set(jm) - per_action(jm)
+    assert set(PORT_METRICS) <= set(m)
+    assert per_action(m) <= {f"{p}/train_{a}" for p in ("loss", "val")
+                             for a in [*range(tr.game.num_actions), "initial"]}
+    for k, v in m.items():
+        assert np.isfinite(v), k
+
+    net = load_params(tmp_path / "jax" / "ckpt" / "epoch0.params", tr.game,
+                      "cpu")
+    got = tr.evaluate_params(net)
+    for k in ("exploitability_last", "exploitability_avg",
+              "eval_mse/net_reach", "eval_mse/fp_reach"):
+        assert abs(got[k] - jm[k]) < 1e-8, (k, got[k], jm[k])
+
+    path = tmp_path / "port" / "ckpt" / "epoch0.params"
+    q = np.random.RandomState(0).rand(64, tr.game.query_size).astype(
+        np.float32)
+    want = tr.net(torch.as_tensor(q)).detach().numpy()
+    jvf, _ = _load_net(str(path), JTrainer(jcfg).game, {"model": {
+        "kwargs": {"n_hidden": 32, "n_layers": 1}}})
+    np.testing.assert_allclose(np.asarray(jvf(jnp.asarray(q))), want,
+                               atol=1e-6)
+    jparams = jload_params(str(path))["params"]
+    assert jparams["Dense_0"]["kernel"].shape == (tr.game.query_size, 32)
+    assert jparams["Dense_1"]["kernel"].shape == (32, tr.game.num_hands)
+
+
+def test_resume_equals_uninterrupted(tmp_path):
+    """Two epochs, a checkpoint, a fresh trainer loading it and a third
+    epoch: the same parameters, optimizer moments, replay ring, episodes
+    and generator as three straight epochs (``torch.equal``).  Validation
+    snapshots draw from the generator every epoch, so its state must
+    carry over too."""
+    _, cfg = _small(use_cfr=True, exploit=False, max_epochs=3,
+                    use_priority=True)
+    cfg = dataclasses.replace(cfg, solver_dtype=torch.float32)
+    straight = Trainer(cfg, device="cpu", out_dir=tmp_path / "a")
+    straight.run()
+    first = Trainer(cfg, device="cpu", out_dir=tmp_path / "b")
+    first.run(max_epochs=2)
+    resumed = Trainer(cfg, device="cpu", out_dir=tmp_path / "c")
+    resumed.load_checkpoint(tmp_path / "b" / "ckpt" / "epoch1.ckpt")
+    assert (resumed.epoch, resumed.step) == (2, 2 * resumed.steps_per_epoch)
+    (m,) = resumed.run()
+    assert m["epoch"] == 2
+    a, b = straight.state_dict(), resumed.state_dict()
+    for k in ("epoch", "step", "gen_steps"):
+        assert a[k] == b[k], k
+    for x, y in zip(jax.tree.leaves(a["net"]), jax.tree.leaves(b["net"])):
+        assert torch.equal(x, y)
+    for p, q in zip(straight.opt.state.values(), resumed.opt.state.values()):
+        assert p.keys() == q.keys()
+        assert all(torch.equal(p[k], q[k]) for k in p)
+    for k in ("queries", "values", "priorities", "head", "size", "num_add"):
+        x, y = a["replay"][k], b["replay"][k]
+        assert torch.equal(x, y) if torch.is_tensor(x) else x == y, k
+    for k in a["episodes"]:
+        assert torch.equal(a["episodes"][k], b["episodes"][k]), k
+    assert torch.equal(a["generator"], b["generator"])
+    # Retention keeps the newest keep_checkpoints full-state files.
+    keep = dataclasses.replace(cfg, keep_checkpoints=2, max_epochs=3)
+    Trainer(keep, device="cpu", out_dir=tmp_path / "d").run()
+    assert sorted(p.name for p in (tmp_path / "d" / "ckpt").iterdir()) == [
+        "epoch0.params", "epoch1.ckpt", "epoch1.params", "epoch2.ckpt",
+        "epoch2.params"]
+
+
+def test_benchmark_and_fake_training_modes(tmp_path):
+    _, cfg = _small(exploit=False, create_validation_set_every=0)
+    bench = Trainer(dataclasses.replace(cfg, benchmark_data_gen=0.3),
+                    device="cpu", out_dir=tmp_path / "bench")
+    fresh = Trainer(cfg, device="cpu")
+    (m,) = bench.run()
+    assert m["benchmark/examples"] > 0 and m["benchmark/examples_per_s"] > 0
+    assert bench.epoch == 0 and bench.step == 0
+    for x, y in zip(bench.net.parameters(), fresh.net.parameters()):
+        assert torch.equal(x, y)
+    assert (tmp_path / "bench" / "metrics.jsonl").exists()
+    fake = Trainer(dataclasses.replace(cfg, fake_training=True,
+                                       max_epochs=3), device="cpu")
+    metrics = fake.run()
+    assert len(metrics) == 3 and "loss/train" not in metrics[-1]
+    assert metrics[-1]["bps/gen_examples"] > 0
+    assert metrics[-1]["buffer/added"] >= 64 * 3 // 4  # the throttle ran
+    for x, y in zip(fake.net.parameters(), fresh.net.parameters()):
+        assert torch.equal(x, y)
+
+
+def test_validation_dump_preload_and_purge(tmp_path):
+    """Validation losses at checkpoint epochs, a dataset dump that the JAX
+    package reads, a purge at its epoch, and a new trainer preloaded from
+    the dump."""
+    from rebel_tpu.selfplay import replay as jrb_
+
+    _, cfg = _small(exploit=False, max_epochs=3, checkpoint_every=2,
+                    dump_dataset_every_epochs=2, purging_epochs=(2,),
+                    purging_share_keep=0.5)
+    tr = Trainer(cfg, device="cpu", out_dir=tmp_path)
+    metrics = tr.run()
+    assert {k for k in metrics[2] if k.startswith("loss/valid")} == {
+        "loss/valid_snapshot_0000", "loss/valid_snapshot_0001",
+        "loss/valid_snapshot_0002"}
+    assert not any(k.startswith("loss/valid") for k in metrics[1])
+    # Purged after epoch 1 (epoch + 1 == 2) to half the ring, at least two
+    # batches; the dump at the start of epoch 2 holds what was kept.
+    dump = tmp_path / "dumped_data" / "data_002.dat"
+    q, v = jrb_.load_file(str(dump))
+    assert q.shape == (max(32, metrics[1]["buffer/size"] // 2),
+                       tr.game.query_size)
+    assert (tmp_path / "dumped_data" / "data_000.dat").exists()
+    pre = Trainer(dataclasses.replace(cfg, train_preload=str(dump),
+                                      train_gen_ratio=0, max_epochs=1,
+                                      purging_epochs=()), device="cpu")
+    (m,) = pre.run()
+    assert m["buffer/added"] == len(q) and np.isfinite(m["loss/train"])
+    np.testing.assert_array_equal(rb.extract(pre.replay)[0], q)
+
+
+def test_engine_kinds():
+    from rebel_tpu_torch.selfplay.fast_runner import (
+        FastBatchedEngine,
+        FastCudaEngine,
+    )
+    from rebel_tpu_torch.selfplay.runner import SelfPlayEngine
+
+    _, cfg = _small()
+    kind = lambda **kw: type(Trainer(dataclasses.replace(cfg, **kw),
+                                     device="cpu").engine)
+    for name in ("auto", "kernel"):
+        assert kind(engine=name) is FastCudaEngine
+    assert kind(engine="batched") is FastBatchedEngine
+    assert kind(engine="generic") is SelfPlayEngine
+    deep = dataclasses.replace(cfg.env, subgame_params=dataclasses.replace(
+        cfg.env.subgame_params, max_depth=3))
+    assert kind(env=deep) is SelfPlayEngine
+    with pytest.raises(NotImplementedError, match="grid2"):
+        kind(engine="fast")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Trainer(cfg, device="cuda")
