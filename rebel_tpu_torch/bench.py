@@ -49,13 +49,14 @@ from rebel_tpu_torch.solving.params import SubgameSolvingParams
 H100_BF16_FLOPS = 989e12
 N_HIDDEN, N_LAYERS = 256, 2
 # Defaults of --batch, --lane-block and --mlp-chunks, from the sweep of
-# rebel_tpu_torch/bench_sweep.py on an H100 (PERF.md): the largest lane
-# block whose state fits beside the bf16 MLP block in shared memory for
-# CFR and fictitious play alike, at one block on each of the 132 SMs;
-# mlp_chunks None lets the wrapper choose (grid2p.default_mlp_chunks: one
-# group of pairs, the least row padding).
+# rebel_tpu_torch/bench_sweep.py on an H100 (PERF.md): lane_block None lets
+# the wrapper choose (grid2p.choose_lane_block: 8 at 1x4f for CFR and
+# fictitious play alike, the largest block whose state fits beside the
+# bf16 MLP block in shared memory), and the batch puts one block on each
+# of the 132 SMs; mlp_chunks None lets the wrapper choose
+# (grid2p.default_mlp_chunks: one group of pairs, the least row padding).
 DEFAULT_BATCH = 1056
-DEFAULT_LANE_BLOCK = 8
+DEFAULT_LANE_BLOCK = None
 DEFAULT_MLP_CHUNKS = None
 
 
@@ -73,13 +74,15 @@ def card_name_and_power_limit() -> str | None:
 
 def measure(batch: int, num_iters: int, steps: int, warmup: int = 1,
             layout: str = "kernel", no_net: bool = False,
-            lane_block: int = DEFAULT_LANE_BLOCK,
+            lane_block: int | None = DEFAULT_LANE_BLOCK,
             mlp_chunks: int | None = DEFAULT_MLP_CHUNKS, ablate: str = "",
             gelu: str = "auto", use_cfr: bool = True, interleave: int = 1,
             device: str = "cuda") -> dict:
     """Time ``steps`` whole ``batch_step``s of ``batch`` lanes after
     ``warmup`` untimed ones.  ``layout="kernel"`` is the fused solve,
-    ``"plain"`` the batch-last solver in plain PyTorch."""
+    ``"plain"`` the batch-last solver in plain PyTorch, ``"batch_first"``
+    the batch-first one (the ``fast`` engine, its net in bf16; it needs a
+    net, as the JAX package's does)."""
     cfg = RecursiveSolvingParams(
         num_dice=1, num_faces=4,
         subgame_params=SubgameSolvingParams(
@@ -91,6 +94,8 @@ def measure(batch: int, num_iters: int, steps: int, warmup: int = 1,
             cfg, kind="kernel", net_compute_dtype=torch.bfloat16,
             lane_block=lane_block, mlp_chunks=mlp_chunks, ablate=ablate,
             gelu=gelu, interleave=interleave)
+    elif layout == "batch_first":
+        engine = make_engine(cfg, kind="fast")
     else:
         engine = make_engine(cfg, kind="batched",
                              net_compute_dtype=torch.bfloat16)
@@ -99,6 +104,8 @@ def measure(batch: int, num_iters: int, steps: int, warmup: int = 1,
     if not no_net:
         net = CFVNet(game, N_HIDDEN, N_LAYERS, True,
                      generator=torch.Generator().manual_seed(0)).to(device)
+        if layout == "batch_first":
+            net = net.to(torch.bfloat16)
     eps = EpisodeState.initial_batch(game, batch, device)
     gen = torch.Generator(device).manual_seed(1)
     on_card = torch.device(device).type == "cuda"
@@ -133,6 +140,8 @@ def measure(batch: int, num_iters: int, steps: int, warmup: int = 1,
         "kernel_s": (sum(s.elapsed_time(e) for _, s, e in events) / 1e3
                      if events else None),
         "launches": launches,
+        # The lane block the kernel launched with (None: no launch).
+        "lane_block": grid2p.solve.last_lane_block if launches else None,
         "checksum": checksum,
     }
 
@@ -185,12 +194,16 @@ def parse_args(argv=None):
     ap.add_argument("--profile", default=None,
                     help="write a torch.profiler trace of the headline "
                     "measurement to this directory")
-    ap.add_argument("--layout", default="kernel", choices=("kernel", "plain"),
+    ap.add_argument("--layout", default="kernel",
+                    choices=("kernel", "plain", "batch_first"),
                     help="kernel: the fused solve; plain: the batch-last "
-                    "solver in plain PyTorch")
+                    "solver in plain PyTorch; batch_first: the batch-first "
+                    "one (the fast engine)")
     ap.add_argument("--no-net", action="store_true",
                     help="solver only (zero leaf values, no MLP)")
-    ap.add_argument("--lane-block", type=int, default=DEFAULT_LANE_BLOCK)
+    ap.add_argument("--lane-block", type=int, default=DEFAULT_LANE_BLOCK,
+                    help="lanes a block solves (default: the wrapper "
+                    "chooses from the game and the batch)")
     ap.add_argument("--mlp-chunks", type=int, default=DEFAULT_MLP_CHUNKS)
     ap.add_argument("--interleave", type=int, default=1,
                     help="2: two groups of warps per block, each with half "
@@ -291,7 +304,7 @@ def main(argv=None) -> list[dict]:
                 "launches": res["launches"],
                 "checksum": res["checksum"],
                 "layout": args.layout,
-                "lane_block": args.lane_block,
+                "lane_block": res["lane_block"],
                 "mlp_chunks": args.mlp_chunks,
                 "interleave": args.interleave,
                 "gelu": args.gelu,

@@ -8,8 +8,8 @@ directories keyed by config and overrides, and the run modes
 ``dryrun``.
 
 Where the port differs: ``selfplay.engine: pallas`` is the port's
-``kernel`` engine, ``fast`` is not ported yet, and
-``selfplay.net_compute_dtype`` becomes a torch dtype.
+``kernel`` engine and ``selfplay.net_compute_dtype`` becomes a torch
+dtype.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ MODES = ("gentle_start", "start_restart", "start_continue", "restart",
 
 # selfplay.engine values of the JAX package and the port's engine kinds.
 ENGINES = {"auto": "auto", "pallas": "kernel", "kernel": "kernel",
-           "batched": "batched", "generic": "generic"}
+           "fast": "fast", "batched": "batched", "generic": "generic"}
 
 
 # ------------------------------------------------------------- yaml load
@@ -125,15 +125,9 @@ def _check_section(section: str, d: dict, consumed, vestigial=()):
 
 
 def _engine(name: str) -> str:
-    if name == "fast":
-        raise NotImplementedError(
-            "selfplay.engine=fast needs the batch-first grid solver "
-            "(rebel_tpu/solving/grid2.py), which rebel_tpu_torch does not "
-            "port yet (ROADMAP.md, Queue 1 item 12); 'pallas' (the fused "
-            "kernel) or 'batched' compute the same subgames")
     if name not in ENGINES:
         raise ValueError(f"Unknown selfplay.engine {name!r}; one of "
-                         f"{sorted(ENGINES) + ['fast']}")
+                         f"{sorted(ENGINES)}")
     return ENGINES[name]
 
 

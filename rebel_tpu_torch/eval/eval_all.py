@@ -8,8 +8,11 @@ evaluation (``--mdp-depth 2 --subgame-iters 1024 --num-repeats 1024`` by
 default, the paper protocol) and writes the rows to ``--out``.  It runs on
 the card (``--device cuda``, the fused kernel with a bfloat16 MLP) unless
 ``--device cpu`` is given; ``--f64`` solves in float64 with the plain
-engine.  ``--net`` is ``zero``, ``oracle`` or a checkpoint (a ``.params``
-export or a ``Net2`` state dict).  Counterpart of the arguments of
+engine; ``--engine fast`` solves with the batch-first plain solver, the
+JAX package's default, with the MLP in the solver's dtype.  ``--net`` is
+``zero``, ``oracle`` or a checkpoint (a ``.params`` export or a ``Net2``
+state dict); without it, ``--ckpt-root`` takes the latest
+``epoch*.params`` under a directory.  Counterpart of the arguments of
 ``scripts/eval_all.py`` that drive ``run_eval``.
 """
 
@@ -18,6 +21,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import time
 
 
 def parse_game(s: str) -> tuple[int, int]:
@@ -31,6 +35,9 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--solvers", nargs="+", default=["fp", "cfr"])
     ap.add_argument("--net", default=None,
                     help="'oracle', 'zero', or a checkpoint path")
+    ap.add_argument("--ckpt-root", default=None,
+                    help="without --net: the latest epoch*.params under "
+                    "this directory")
     ap.add_argument("--subgame-iters", type=int, default=1024)
     ap.add_argument("--num-repeats", type=int, default=1024)
     ap.add_argument("--mdp-depth", type=int, default=2)
@@ -49,12 +56,14 @@ def main(argv=None) -> list[dict]:
                     help="repeats per device batch in the sampled "
                     "evaluation (default: bounded by a ~256 MB strategy "
                     "block)")
-    ap.add_argument("--engine", default=None, choices=("kernel", "plain"),
+    ap.add_argument("--engine", default=None,
+                    choices=("kernel", "plain", "fast"),
                     help="phase-2 lane solver: 'kernel' = the fused solve "
                     "the self-play generator runs (float32, checkpoint or "
                     "zero nets only; the default without --f64); 'plain' = "
                     "the batch-last solver in plain PyTorch (any dtype, any "
-                    "net; the default with --f64)")
+                    "net; the default with --f64); 'fast' = the batch-first "
+                    "solver in plain PyTorch (any dtype, any net)")
     ap.add_argument("--out", default="eval_all_results.json")
     args = ap.parse_args(argv)
 
@@ -66,6 +75,7 @@ def main(argv=None) -> list[dict]:
         make_oracle_value_fn,
         zero_value_fn,
     )
+    from rebel_tpu_torch.solving import grid2p
     from rebel_tpu_torch.solving.params import SubgameSolvingParams
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -99,11 +109,23 @@ def main(argv=None) -> list[dict]:
                 value_fn = zero_value_fn(game)
             elif args.net:
                 value_fn, net = _load_net(args.net, game, args.device)
+            elif args.ckpt_root:
+                ckpts = sorted(
+                    pathlib.Path(args.ckpt_root).rglob("epoch*.params"),
+                    key=lambda p: int(p.stem[5:]))
+                if not ckpts:
+                    print(f"no checkpoints under {args.ckpt_root}; "
+                          "skipping")
+                    continue
+                net_name = str(ckpts[-1])
+                value_fn, net = _load_net(net_name, game, args.device)
 
             # Progress streams to a per-row partial file, so a run that
             # is killed keeps every report it computed; finished rows
             # land in <out> at once.
             partial = pathlib.Path(f"{args.out}.{gstr}-{solver}.partial")
+            launches0 = grid2p.solve.launches
+            t0 = time.perf_counter()
             result = run_eval(
                 game, params, value_fn,
                 subgame_iters=args.subgame_iters,
@@ -126,6 +148,10 @@ def main(argv=None) -> list[dict]:
                 "engine": engine,
                 "device": args.device,
                 "net_compute_dtype": result.get("net_compute_dtype"),
+                "lane_block": result.get("lane_block"),
+                # Host seconds of the row and the fused kernel's launches.
+                "wall_s": time.perf_counter() - t0,
+                "launches": grid2p.solve.launches - launches0,
                 "full_tree": result["exploitability"].get("full_tree"),
                 "rebel": next(
                     (v for k, v in result["exploitability"].items()

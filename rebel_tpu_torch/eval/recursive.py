@@ -12,7 +12,7 @@ host.  Two recursions:
   :func:`compute_sampled_strategy_recursive_to_leaf`), one repeat at a
   time, as the in-training exploitability runs it;
 * the batched one over many repeats at depth 2, the paper protocol
-  (:class:`Grid2FrontierSolver`, the fused solve;
+  (:class:`Grid2FrontierSolver`, the fused solve or a plain solver;
   :func:`compute_sampled_strategies_to_leaf_batch`).
 
 Per-subgame random stop iterations (the emulation of training-time play)
@@ -25,6 +25,7 @@ the JAX package, so both packages draw the same ones.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -37,6 +38,7 @@ from rebel_tpu_torch.solving.core import (
     ValueFn,
     reach_eps,
 )
+from rebel_tpu_torch.solving.grid2 import Grid2Solver
 from rebel_tpu_torch.solving.params import SubgameSolvingParams
 from rebel_tpu_torch.solving.solver import build_solver
 from rebel_tpu_torch.tree import (
@@ -46,7 +48,11 @@ from rebel_tpu_torch.tree import (
     unroll_tree,
 )
 
-ENGINES = ("kernel", "plain")
+ENGINES = ("kernel", "plain", "fast")
+# Lanes a frontier solve takes when ``Grid2FrontierSolver.chunk`` is None:
+# the JAX package's 1024, but more for the fast engine, whose iterations
+# are a Python loop of launches that larger solves amortise.
+DEFAULT_CHUNK = {"kernel": 1024, "plain": 1024, "fast": 16384}
 
 
 def _normalize_safe_np(x: np.ndarray, eps: float) -> np.ndarray:
@@ -322,22 +328,27 @@ class Grid2FrontierSolver:
       (:class:`rebel_tpu_torch.solving.grid2b.Grid2BatchSolver` through
       :func:`~rebel_tpu_torch.solving.grid2p.solve_loop`), any dtype, any
       ``value_fn``.
+    - ``"fast"``: the batch-first solver in plain PyTorch
+      (:class:`rebel_tpu_torch.solving.grid2.Grid2Solver`), any dtype, any
+      ``value_fn``: the JAX package's default engine.
     - ``"kernel"``: the fused solve (:func:`rebel_tpu_torch.solving.
       grid2p.solve`), the engine the self-play generator runs: float32
       only, and the value net must be a ``CFVNet`` passed as ``net`` (the
       kernel computes the MLP in its loop); ``net=None`` gives zero leaf
       values, as ``zero_value_fn`` does.  On CUDA tensors it launches the
-      CUDA kernel, on the CPU its plain version.
+      CUDA kernel, on the CPU its plain version.  ``lane_block=None``
+      takes :func:`~rebel_tpu_torch.solving.grid2p.choose_lane_block`'s
+      for the game and net (kept in ``lane_block_used``; None on the CPU).
     """
 
     game: LiarsDice
     params: SubgameSolvingParams
     dtype: torch.dtype = torch.float64
     value_fn: ValueFn | None = None
-    chunk: int = 1024
+    chunk: int | None = None  # lanes a solve; None: DEFAULT_CHUNK's
     engine: str = "plain"
     net: torch.nn.Module | None = None
-    lane_block: int = 8
+    lane_block: int | None = None
     net_compute_dtype: torch.dtype | None = None  # None: see above
     device: str | torch.device = "cuda"
 
@@ -365,6 +376,19 @@ class Grid2FrontierSolver:
                     "evaluation. Pass net (the checkpoint's CFVNet) or "
                     "drop value_fn for an explicit zero-net run."
                 )
+        lane_block = self.lane_block
+        if (self.engine == "kernel" and lane_block is None
+                and torch.device(self.device).type == "cuda"):
+            # Every chunk is padded to a multiple of the block, so only
+            # the fit decides it.
+            lane_block = grid2p.choose_lane_block(
+                self.game, self.params, self.net, self._net_dtype(),
+                math.lcm(*grid2p.LANE_BLOCKS))
+        object.__setattr__(self, "lane_block_used", lane_block)
+
+    def _net_dtype(self) -> torch.dtype:
+        return getattr(torch, resolved_net_compute_dtype(
+            "kernel", self.dtype, self.net_compute_dtype))
 
     def _solve_chunk(self, bids, players, beliefs, stops):
         dev = torch.device(self.device)
@@ -375,10 +399,16 @@ class Grid2FrontierSolver:
             torch.as_tensor(stops, device=dev),
         )
         if self.engine == "kernel":
-            net_dtype = getattr(torch, resolved_net_compute_dtype(
-                "kernel", self.dtype, self.net_compute_dtype))
             return grid2p.solve(self.game, self.params, *args, self.net,
-                                net_dtype, lane_block=self.lane_block)
+                                self._net_dtype(),
+                                lane_block=self.lane_block_used)
+        if self.engine == "fast":
+            solver = Grid2Solver(self.game, self.params, self.dtype,
+                                 self.value_fn, device=dev)
+            root = RootCtx.of(self.game, args[0], args[1])
+            state, snaps = solver.solve_with_snapshot(root, args[2],
+                                                      args[3])
+            return grid2p.Grid2Outputs(state.root_values_means, *snaps)
         mlp = None
         if self.value_fn is not None:
             mlp = lambda x: self.value_fn(x.T).T
@@ -388,14 +418,14 @@ class Grid2FrontierSolver:
     def solve(self, bids, players, beliefs, stops):
         """``bids/players/stops [B]``, ``beliefs [B, 2, H]`` ->
         ``(snap0 [B, H, A], snap1 [B, A, H, A])`` as numpy.  The kernel
-        needs a multiple of ``lane_block`` lanes: a partial chunk is
-        padded to one by repeating its first row, and the padding is cut
-        off."""
+        needs a multiple of its lane block: a partial chunk is padded to
+        one by repeating its first row, and the padding is cut off."""
         B = int(np.shape(bids)[0])
-        LB = self.lane_block if self.engine == "kernel" else 1
+        LB = (self.lane_block_used or 1) if self.engine == "kernel" else 1
+        chunk = self.chunk or DEFAULT_CHUNK[self.engine]
         outs0, outs1 = [], []
-        for lo in range(0, B, self.chunk):
-            hi = min(lo + self.chunk, B)
+        for lo in range(0, B, chunk):
+            hi = min(lo + chunk, B)
             pad = -(hi - lo) % LB
             rows = lambda x, d: np.concatenate(
                 [np.asarray(x[lo:hi], d)]
@@ -407,6 +437,21 @@ class Grid2FrontierSolver:
             outs1.append(out.snap1[:hi - lo].cpu().numpy())
         return np.concatenate(outs0, 0), np.concatenate(outs1, 0)
 
+
+
+class ReferenceFrontierSolver(Grid2FrontierSolver):
+    """The ``kernel`` engine with the kernel's plain PyTorch version
+    (:func:`~rebel_tpu_torch.solving.grid2p.solve_reference`) in the
+    kernel's place, on ``device``: what evaluations through the kernel are
+    held to on the card.  On the CPU it is the kernel engine."""
+
+    def _solve_chunk(self, bids, players, beliefs, stops):
+        dev = torch.device(self.device)
+        return grid2p.solve_reference(
+            self.game, self.params, torch.as_tensor(bids, device=dev),
+            torch.as_tensor(players, device=dev),
+            torch.as_tensor(beliefs, dtype=torch.float32, device=dev),
+            torch.as_tensor(stops, device=dev), self.net, self._net_dtype())
 
 def compute_sampled_strategies_to_leaf_batch(
     game: LiarsDice,

@@ -327,6 +327,12 @@ def run_eval(
                  regret_summary["max"], regret_summary["mean"])
     results_ev = {}
     reports = []
+    fsolver = None
+    if num_repeats > 0 and mdp_depth == 2:
+        fsolver = Grid2FrontierSolver(
+            game, params.replace(max_depth=2), dtype, value_fn,
+            engine=engine, net=net, net_compute_dtype=net_compute_dtype,
+            device=device)
     partial = {
         # Provenance: which net, engine and MLP dtype produced this.
         "game": f"{game.num_dice}x{game.num_faces}",
@@ -334,6 +340,8 @@ def run_eval(
         "net": net_name,
         "engine": engine,
         "net_compute_dtype": net_dtype,
+        # The kernel engine's lane block on the card (else None).
+        "lane_block": fsolver and fsolver.lane_block_used,
         "exploitability": dict(results),
         "ev": {},
         "full_trajectory": trajectory,
@@ -374,6 +382,7 @@ def run_eval(
             net=net,
             net_compute_dtype=net_compute_dtype,
             device=device,
+            fsolver=fsolver,
         )
         last = reports[-1]
         results[f"repeated toleaf {num_repeats}"] = last["exploitability"]
@@ -388,6 +397,7 @@ def run_eval(
         "sampled_reports": reports,
         "immediate_regrets": regret_summary,
         "net_compute_dtype": net_dtype,
+        "lane_block": partial["lane_block"],
     }
 
 

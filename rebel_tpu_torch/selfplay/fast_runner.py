@@ -3,11 +3,13 @@
 Counterpart of ``rebel_tpu/selfplay/fast_runner.py``.  One ``batch_step``
 solves every lane's depth-2 subgame, by CFR or by fictitious play, then
 walks each lane one or two actions forward from the policy at its stop
-iteration.  Two engines share that structure and the walk:
+iteration.  Three engines share that structure and the walk:
 
 * :class:`FastCudaEngine` (counterpart of ``FastPallasEngine``): the whole
   solve is one kernel launch
   (:func:`rebel_tpu_torch.solving.grid2p.solve`);
+* :class:`FastSelfPlayEngine`: the batch-first solver of
+  :mod:`rebel_tpu_torch.solving.grid2` in plain PyTorch, on any device;
 * :class:`FastBatchedEngine`: the batch-last solver of
   :mod:`rebel_tpu_torch.solving.grid2b` in plain PyTorch, on any device.
 
@@ -31,18 +33,20 @@ from __future__ import annotations
 import collections
 import copy
 import dataclasses
-import math
 
 import torch
 
 from rebel_tpu_torch.games.liars_dice import INITIAL_ACTION
+from rebel_tpu_torch.nets.value_nets import net_value_fn
 from rebel_tpu_torch.solving import grid2p
 from rebel_tpu_torch.solving.core import (
+    RootCtx,
     normalize_safe,
     reach_eps,
     root_action_mask,
     root_query,
 )
+from rebel_tpu_torch.solving.grid2 import Grid2Solver
 from rebel_tpu_torch.selfplay.runner import (
     EpisodeState,
     RecursiveSolvingParams,
@@ -137,14 +141,16 @@ class FastCudaEngine:
     launch per ``batch_step`` on the card (the plain version on CPU
     tensors).  ``mlp_chunks``, ``gelu``, ``ablate`` and ``interleave`` are
     the kernel's options (see :mod:`rebel_tpu_torch.solving.grid2p`).
-    Keeps the CUDA event pairs around the last ``SOLVE_EVENTS`` solves in
-    ``solve_events``, so a caller can read solve times after a
-    synchronise."""
+    ``lane_block=None`` lets :func:`rebel_tpu_torch.solving.grid2p.solve`
+    choose it from the game and the batch; an explicit one that does not
+    fit raises.  Keeps the CUDA event pairs around the last
+    ``SOLVE_EVENTS`` solves in ``solve_events``, so a caller can read solve
+    times after a synchronise."""
 
     SOLVE_EVENTS = 256
 
     cfg: RecursiveSolvingParams
-    lane_block: int = 8
+    lane_block: int | None = None
     net_compute_dtype: torch.dtype = torch.float32
     mlp_chunks: int | None = None
     gelu: str = "auto"
@@ -158,13 +164,10 @@ class FastCudaEngine:
         _depth2_only(self.cfg, "FastCudaEngine")
 
     def solve(self, eps: EpisodeState, t_stop: torch.Tensor, net):
-        B = eps.root_bid.shape[0]
         return grid2p.solve(
             self.cfg.game, self.cfg.subgame_params, eps.root_bid,
             eps.root_player, eps.beliefs, t_stop, net,
-            self.net_compute_dtype,
-            # Largest block that divides B (the kernel needs B % LB == 0).
-            lane_block=math.gcd(self.lane_block, B),
+            self.net_compute_dtype, lane_block=self.lane_block,
             mlp_chunks=self.mlp_chunks, interleave=self.interleave,
             gelu=self.gelu, ablate=self.ablate,
         )
@@ -223,6 +226,40 @@ class FastBatchedEngine:
         return advance(self.cfg, eps, out.snap0, out.snap1, out.rvm, a1, a2)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class FastSelfPlayEngine:
+    """Batch-first engine: all iterations of the plain depth-2 solver
+    (:class:`rebel_tpu_torch.solving.grid2.Grid2Solver`, the lanes in the
+    leading axis) with the snapshot at each lane's stop iteration, on the
+    device of the episodes.  ``net`` is a
+    :class:`~rebel_tpu_torch.nets.cfv_net.CFVNet` (run by
+    :func:`~rebel_tpu_torch.nets.value_nets.net_value_fn`, in its own
+    dtype on queries in the solver's) or any value function; the solve
+    runs in ``dtype``."""
+
+    cfg: RecursiveSolvingParams
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        _depth2_only(self.cfg, "FastSelfPlayEngine")
+
+    @torch.no_grad()
+    def batch_step(self, eps: EpisodeState, net, gen: torch.Generator):
+        sub = self.cfg.subgame_params
+        game = self.cfg.game
+        dev = eps.beliefs.device
+        t = draw_stop(gen, eps.root_bid.shape[0], sub.num_iters, dev)
+        solver = Grid2Solver(
+            game=game, params=sub, dtype=self.dtype,
+            value_fn=(net_value_fn(net) if isinstance(net, torch.nn.Module)
+                      else net), device=dev)
+        root = RootCtx.of(game, eps.root_bid, eps.root_player)
+        state, (p0, p1) = solver.solve_with_snapshot(root, eps.beliefs, t)
+        a1, a2 = draw_actions(gen, self.cfg, eps, p0, p1)
+        return advance(self.cfg, eps, p0, p1, state.root_values_means, a1,
+                       a2)
+
+
 ENGINE_KINDS = ("auto", "generic", "fast", "batched", "kernel")
 
 
@@ -232,17 +269,15 @@ def make_engine(cfg: RecursiveSolvingParams, dtype=torch.float32,
     """Engine factory.
 
     ``kind``: ``"generic"`` (:class:`SelfPlayEngine`, any depth),
-    ``"batched"`` (:class:`FastBatchedEngine`), ``"kernel"``
-    (:class:`FastCudaEngine`, the counterpart of the reference's
-    ``"pallas"``; ``kernel_options`` are its ``lane_block``,
-    ``mlp_chunks``, ``gelu``, ``ablate`` and ``interleave``), or ``"auto"``:
-    a depth-2 engine where the depth is 2, else the generic one.  The
-    reference's ``"fast"`` (its batch-first grid solver under ``vmap``) is
-    not ported yet (ROADMAP.md, Queue 1 item 12); until it is, ``"auto"``
-    at depth 2 gives ``"batched"``, which computes the same."""
+    ``"fast"`` (:class:`FastSelfPlayEngine`), ``"batched"``
+    (:class:`FastBatchedEngine`), ``"kernel"`` (:class:`FastCudaEngine`,
+    the counterpart of the reference's ``"pallas"``; ``kernel_options`` are
+    its ``lane_block``, ``mlp_chunks``, ``gelu``, ``ablate`` and
+    ``interleave``), or ``"auto"``: ``"fast"`` where the depth is 2, else
+    the generic one, as in the JAX package."""
     depth2 = cfg.subgame_params.max_depth == 2
     if kind == "auto":
-        kind = "batched" if depth2 else "generic"
+        kind = "fast" if depth2 else "generic"
     if kind not in ENGINE_KINDS:
         raise ValueError(f"unknown engine kind {kind!r}")
     if kind != "generic" and not depth2:
@@ -253,10 +288,7 @@ def make_engine(cfg: RecursiveSolvingParams, dtype=torch.float32,
     if kind == "generic":
         return SelfPlayEngine(cfg=cfg, dtype=dtype)
     if kind == "fast":
-        raise NotImplementedError(
-            "engine kind 'fast' needs the batch-first grid solver "
-            "(solving/grid2.py), which is not ported yet: ROADMAP.md, "
-            "Queue 1 item 12; 'batched' computes the same")
+        return FastSelfPlayEngine(cfg=cfg, dtype=dtype)
     if kind == "batched":
         return FastBatchedEngine(cfg=cfg, dtype=dtype,
                                  net_compute_dtype=net_compute_dtype)

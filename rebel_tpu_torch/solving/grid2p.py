@@ -496,12 +496,46 @@ def kernel_plan(game: LiarsDice, params: SubgameSolvingParams,
     return KernelPlan(act, groups, mlp_chunks, bf16, need)
 
 
+# Lane blocks choose_lane_block tries, largest first.  Blocks above 8 fit
+# some 1x4f layouts but are a question of speed, not of fit.
+LANE_BLOCKS = (8, 4, 2, 1)
+
+
+def choose_lane_block(game: LiarsDice, params: SubgameSolvingParams,
+                      net: CFVNet | None, net_compute_dtype: torch.dtype,
+                      batch: int, interleave: int = 1, gelu: str = "auto",
+                      ablate: str = "", mlp_chunks: int | None = None) -> int:
+    """The largest of :data:`LANE_BLOCKS` that divides ``batch`` and whose
+    layout fits a block's shared memory (:func:`kernel_plan`); with
+    ``interleave=2`` where it applies, only even blocks.  Chosen before
+    anything is built or launched; raises ``kernel_plan``'s
+    ``ValueError`` for the smallest candidate when none fits."""
+    groups = effective_interleave(params, net is not None, interleave, None)
+    blocks = [lb for lb in LANE_BLOCKS
+              if batch % lb == 0 and lb % groups == 0]
+    if not blocks:
+        raise ValueError(f"no lane block of {LANE_BLOCKS} divides batch "
+                         f"{batch}" + (" into even blocks" if groups == 2
+                                       else ""))
+    plan = lambda lb: kernel_plan(game, params, net, net_compute_dtype,
+                                  batch, lb, mlp_chunks, interleave, gelu,
+                                  ablate)
+    for lb in blocks[:-1]:
+        try:
+            plan(lb)
+            return lb
+        except ValueError:
+            pass
+    plan(blocks[-1])  # raises when not even the smallest fits
+    return blocks[-1]
+
+
 @torch.no_grad()
 def solve(game: LiarsDice, params: SubgameSolvingParams,
           bids: torch.Tensor, players: torch.Tensor, beliefs: torch.Tensor,
           t_stop: torch.Tensor, net: CFVNet | None = None,
           net_compute_dtype: torch.dtype = torch.float32,
-          lane_block: int = 8, mlp_chunks: int | None = None,
+          lane_block: int | None = None, mlp_chunks: int | None = None,
           interleave: int = 1, gelu: str = "auto",
           ablate: str = "") -> Grid2Outputs:
     """The fused solve: one launch of ``kernels/grid2_cfr.cu`` runs all
@@ -523,6 +557,10 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
         raise ValueError(f"solve runs on cuda or cpu tensors, not {dev}")
     _check_inputs(game, params, bids, players, beliefs, t_stop)
     B = bids.shape[0]
+    if lane_block is None:
+        lane_block = choose_lane_block(game, params, net, net_compute_dtype,
+                                       B, interleave, gelu, ablate,
+                                       mlp_chunks)
     plan = kernel_plan(game, params, net, net_compute_dtype, B, lane_block,
                        mlp_chunks, interleave, gelu, ablate)
     from rebel_tpu_torch.kernels import build
@@ -604,6 +642,7 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
         solve.events.append((name, *events))
     solve.launches += 1
     solve.launches_by_kernel[name] += 1
+    solve.last_lane_block = lane_block
     return Grid2Outputs(rvm=rvm, snap0=snap0, snap1=snap1)
 
 
@@ -620,6 +659,7 @@ def kernel_name(params: SubgameSolvingParams, has_net: bool = True,
 KERNEL_NAMES = ("grid2_cfr", "grid2_fp", "grid2_cfr_il2")
 solve.launches = 0
 solve.launches_by_kernel = dict.fromkeys(KERNEL_NAMES, 0)
+solve.last_lane_block = None
 # Set to a list to collect ``(kernel name, start, end)`` CUDA events around
 # every launch (read the times after a synchronise); None collects nothing.
 solve.events = None

@@ -92,9 +92,10 @@ class TrainerConfig:
     use_priority: bool = False
     train_gen_ratio: int = 4
     max_epochs: int = 10000
-    # Self-play engine: 'auto' (at depth 2 the fused solve, 'kernel'; else
-    # 'generic') | 'kernel' ('pallas' in the JAX package's configs, which
-    # config.py maps) | 'batched' | 'generic'.  'fast' is not ported yet.
+    # Self-play engine: 'auto' (at depth 2 the fused solve, 'kernel', where
+    # the JAX package's trainer takes 'fast'; else 'generic') | 'kernel'
+    # ('pallas' in the JAX package's configs, which config.py maps) |
+    # 'fast' | 'batched' | 'generic'.
     engine: str = "auto"
     # bfloat16: bf16 matmul operands with f32 accumulation and the fast
     # GELU inside the fused solve; float32 is the parity path.

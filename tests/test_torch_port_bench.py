@@ -135,7 +135,7 @@ def test_profile_writes_a_trace(tmp_path, capsys, one_thread):
 
 def test_bad_options_are_refused():
     for argv in (["--ablate", "nothing"], ["--gelu", "tanh"],
-                 ["--layout", "batch_first"]):
+                 ["--layout", "nope"]):
         with pytest.raises(SystemExit):
             bench.parse_args(argv)
     with pytest.raises(ValueError, match="interleave"):
@@ -173,3 +173,17 @@ def test_watchdog_prints_a_partial_line_with_an_error_key():
     assert proc.returncode == 3
     line = json.loads(proc.stdout.splitlines()[-1])
     assert line["value"] is None and "watchdog expired" in line["error"]
+
+
+def test_batch_first_layout_runs_the_fast_engine(capsys, one_thread):
+    """``--layout batch_first`` steps the ``fast`` engine (the batch-first
+    solver in plain PyTorch), which launches no kernel and, as the JAX
+    package's, needs a net."""
+    (line,) = bench.main([*TINY, "--headline-only", "--layout",
+                          "batch_first"])
+    capsys.readouterr()
+    d = line["detail"]
+    assert d["layout"] == "batch_first" and line["value"] > 0
+    assert d["launches"] == {} and d["lane_block"] is None
+    with pytest.raises(ValueError, match="value_fn"):
+        bench.main([*TINY, "--no-net", "--layout", "batch_first"])

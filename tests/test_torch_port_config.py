@@ -116,12 +116,10 @@ def test_vestigial_keys_are_accepted_and_engines_map():
     assert tc.selfplay_batch == 32 == jcfg.cfg_to_trainer_config(
         cfg).selfplay_batch
     for name, kind in (("pallas", "kernel"), ("kernel", "kernel"),
-                       ("auto", "auto"), ("batched", "batched"),
-                       ("generic", "generic")):
+                       ("auto", "auto"), ("fast", "fast"),
+                       ("batched", "batched"), ("generic", "generic")):
         assert cfglib.cfg_to_trainer_config(
             {"selfplay": {"engine": name}}).engine == kind
-    with pytest.raises(NotImplementedError, match="grid2.py"):
-        cfglib.cfg_to_trainer_config({"selfplay": {"engine": "fast"}})
     with pytest.raises(ValueError, match="selfplay.engine"):
         cfglib.cfg_to_trainer_config({"selfplay": {"engine": "warp"}})
 

@@ -32,6 +32,7 @@ from rebel_tpu_torch.selfplay import fast_runner
 from rebel_tpu_torch.selfplay.fast_runner import (
     FastBatchedEngine,
     FastCudaEngine,
+    FastSelfPlayEngine,
     advance,
     make_engine,
 )
@@ -279,14 +280,16 @@ def test_generic_engine_batch_step_draws_legal_paths():
 # ------------------------------------------------------ the engine factory
 @pytest.mark.parametrize(
     "kind,depth,cls",
-    [("auto", 2, FastBatchedEngine), ("auto", 3, SelfPlayEngine),
+    [("auto", 2, FastSelfPlayEngine), ("auto", 3, SelfPlayEngine),
      ("generic", 2, SelfPlayEngine), ("generic", 1, SelfPlayEngine),
-     ("batched", 2, FastBatchedEngine), ("kernel", 2, FastCudaEngine)])
+     ("fast", 2, FastSelfPlayEngine), ("batched", 2, FastBatchedEngine),
+     ("kernel", 2, FastCudaEngine)])
 def test_make_engine_kinds(kind, depth, cls):
+    """As the JAX package's factory: ``auto`` is ``fast`` at depth 2."""
     _, cfg = _cfgs(depth)
     eng = make_engine(cfg, kind=kind, net_compute_dtype=torch.bfloat16)
     assert type(eng) is cls
-    if cls is not SelfPlayEngine:
+    if cls in (FastBatchedEngine, FastCudaEngine):
         assert eng.net_compute_dtype == torch.bfloat16
 
 
@@ -306,8 +309,9 @@ def test_make_engine_unknown_kind_and_unported_fast():
         jmake_engine(jcfg, kind="nope")
     with pytest.raises(ValueError, match="unknown engine kind"):
         make_engine(cfg, kind="nope")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        make_engine(cfg, kind="fast")
+    assert type(make_engine(cfg, kind="fast")) is FastSelfPlayEngine
+    assert type(jmake_engine(jcfg, kind="fast")).__name__ == \
+        "FastSelfPlayEngine"
 
 
 def test_make_engine_passes_kernel_options():

@@ -329,3 +329,52 @@ def test_breakdown_needs_the_card():
     if torch.cuda.is_available():
         pytest.skip("this checks the refusal without a card")
     assert mlp_breakdown.main([]) == 1
+
+
+# The largest lane block of grid2p.LANE_BLOCKS that fits a 256x2 net, by
+# game: bf16 CFR, bf16 FP, f32 CFR, f32 FP.
+CHOSEN_LANE_BLOCK = {(1, 4): (8, 8, 8, 8), (1, 5): (4, 4, 8, 8),
+                     (1, 6): (4, 2, 8, 8), (2, 3): (2, 1, 4, 4)}
+
+
+@pytest.mark.parametrize("batch", [1024, 2048, 256])
+@pytest.mark.parametrize("dice,faces", list(CHOSEN_LANE_BLOCK))
+def test_lane_block_is_chosen_from_the_game_and_the_batch(dice, faces,
+                                                          batch):
+    """Every game of ``eval_all``'s defaults, CFR and FP, bf16 and f32: the
+    chosen block is the largest of 8, 4, 2, 1 that fits (always 8 at
+    1x4f), the plan at it fits, and the next larger block does not."""
+    game = LiarsDice(dice, faces)
+    net = _net(game)
+    want = iter(CHOSEN_LANE_BLOCK[dice, faces])
+    for dtype in (torch.bfloat16, torch.float32):
+        for use_cfr in (True, False):
+            lb = grid2p.choose_lane_block(game, _params(use_cfr), net, dtype,
+                                          batch)
+            assert lb == next(want)
+            assert grid2p.kernel_plan(game, _params(use_cfr), net, dtype,
+                                      batch, lb).smem <= grid2p.SMEM_LIMIT
+            if lb < 8:
+                with pytest.raises(ValueError, match="shared memory"):
+                    grid2p.kernel_plan(game, _params(use_cfr), net, dtype,
+                                       batch, 2 * lb)
+
+
+def test_lane_block_choice_follows_the_batch_and_interleave():
+    """A block must divide the batch, and with interleave=2 be even; an
+    explicit block that does not fit still raises, and where no block
+    fits the choice raises kernel_plan's error for block 1."""
+    net = _net(GAME)
+    choose = lambda batch, **kw: grid2p.choose_lane_block(
+        GAME, _params(True), net, torch.bfloat16, batch, **kw)
+    assert [choose(b) for b in (1056, 12, 6, 3)] == [8, 4, 2, 1]
+    assert choose(1056, interleave=2) == 8
+    assert choose(6, interleave=2) == 2
+    with pytest.raises(ValueError, match="even blocks"):
+        choose(3, interleave=2)
+    with pytest.raises(ValueError, match="shared memory"):
+        grid2p.kernel_plan(LiarsDice(2, 3), _params(False), _net(
+            LiarsDice(2, 3)), torch.bfloat16, 1024, 8)
+    with pytest.raises(ValueError, match="lane_block 1 .* shared memory"):
+        grid2p.choose_lane_block(GAME, _params(True), _net(n_layers=3),
+                                 torch.bfloat16, 1024)

@@ -149,3 +149,12 @@ def test_watchdog_exits_87_with_a_stalled_file(tmp_path):
     fed.alive(1)
     fed.stop()
     assert not (tmp_path / "fed" / "STALLED").exists()
+
+
+def test_selfplay_engine_fast_trains(tmp_path):
+    """``selfplay.engine=fast`` (the JAX package's batch-first engine)
+    trains and checkpoints through the run entry."""
+    out = entry(tmp_path / "fast", "selfplay.engine=fast", "max_epochs=1")
+    assert type(out.trainer.engine).__name__ == "FastSelfPlayEngine"
+    assert epochs(tmp_path / "fast") == [0]
+    assert (tmp_path / "fast" / "ckpt" / "epoch0.params").exists()

@@ -145,7 +145,8 @@ def test_engine_without_sample_leaf_matches_walk():
 def test_engine_batch_step_composes_draws_solve_and_walk(monkeypatch):
     """``FastCudaEngine.batch_step`` = ``draw_stop`` -> solve ->
     ``draw_actions`` -> ``advance`` on one generator, with the lane block
-    cut to the largest divisor of the batch (``math.gcd``)."""
+    left to the solve (``None``: chosen from the game and the batch on the
+    card)."""
     _, cfg = _cfgs()
     game = cfg.game
     net = net_from_state_dict(
@@ -160,10 +161,10 @@ def test_engine_batch_step_composes_draws_solve_and_walk(monkeypatch):
         return solve(*a, lane_block=lane_block, **kw)
 
     monkeypatch.setattr(grid2p, "solve", spy)
-    eng = FastCudaEngine(cfg=cfg, lane_block=8)
+    eng = FastCudaEngine(cfg=cfg)
     ep = EpisodeState.initial_batch(game, 12, device="cpu")
     new, out = eng.batch_step(ep, net, torch.Generator().manual_seed(3))
-    assert blocks == [4]
+    assert blocks == [None]
 
     gen = torch.Generator().manual_seed(3)
     t = draw_stop(gen, 12, SUB["num_iters"], "cpu")

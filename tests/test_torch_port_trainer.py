@@ -410,6 +410,7 @@ def test_engine_kinds():
     from rebel_tpu_torch.selfplay.fast_runner import (
         FastBatchedEngine,
         FastCudaEngine,
+        FastSelfPlayEngine,
     )
     from rebel_tpu_torch.selfplay.runner import SelfPlayEngine
 
@@ -423,8 +424,7 @@ def test_engine_kinds():
     deep = dataclasses.replace(cfg.env, subgame_params=dataclasses.replace(
         cfg.env.subgame_params, max_depth=3))
     assert kind(env=deep) is SelfPlayEngine
-    with pytest.raises(NotImplementedError, match="grid2"):
-        kind(engine="fast")
+    assert kind(engine="fast") is FastSelfPlayEngine
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(cfg, device="cuda")
