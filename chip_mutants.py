@@ -10,7 +10,10 @@ into a temporary directory, changes one line of
 ``rebel_tpu_torch/kernels/grid2_cfr.cu`` there, runs the phases of
 ``chip_smoke.py`` that should catch it, and prints every check line with
 its verdict.  ``none`` runs the same phases on the unchanged kernel.  A
-mutant is *caught* if any check says MISS.  The checkout itself is never
+mutant is *caught* if any check says MISS or the card stops the kernel
+with a fault (:data:`KERNEL_FAULTS`); a run that fails without either (a
+mutant that does not build, a Python error of the harness) is *harness
+failed*, and the script then exits 1.  The checkout itself is never
 changed.
 """
 
@@ -27,18 +30,23 @@ KERNEL = "rebel_tpu_torch/kernels/grid2_cfr.cu"
 FP_PHASES = "fp-checks,exploit-check,fp-selfplay"
 CFR_PHASES = "exploit-check"
 KNOB_PHASES = "knob-checks"
+CHECK_PHASES = "cfr-checks,fp-checks"
+# What the CUDA runtime prints when the card stops a faulty kernel.
+KERNEL_FAULTS = ("illegal memory access", "illegal instruction",
+                 "misaligned address", "unspecified launch failure",
+                 "device-side assert")
 
 # name: (line of the kernel, its replacement, phases that should catch it)
 MUTANTS = {
     "none": (None, None, FP_PHASES),
     # FP: ties broken to the highest action at level 1 and at the root.
     "fp-ties-highest": (
-        "if (m0a && a2 > a1 && q > vmax) { vmax = q; best = a2; }",
-        "if (m0a && a2 > a1 && q >= vmax) { vmax = q; best = a2; }",
+        "if (m0a && q > vmax) { vmax = q; best = a2; }",
+        "if (m0a && q >= vmax) { vmax = q; best = a2; }",
         FP_PHASES),
     "fp-root-ties-highest": (
-        "if (m > 0.f && v1 > st) { st = v1; best = a; }",
-        "if (m > 0.f && v1 >= st) { st = v1; best = a; }",
+        "if (mb > 0.f && vb > st) { st = vb; best = b; }",
+        "if (mb > 0.f && vb >= st) { st = vb; best = b; }",
         FP_PHASES),
     # FP: the sums' decay off by one, from iteration 16 and from 256.
     "fp-decay-16": (
@@ -59,6 +67,8 @@ MUTANTS = {
         FP_PHASES),
     # CFR: the discount, and the running mean's weight, off by one from
     # iteration 256: the mutants no comparison of iterates could catch.
+    # The second moves rvm only, never the policy: it is also run through
+    # the no-net check over 1024 iterations (cfr-checks).
     "cfr-discount-256": (
         "pos_d = neg_d = ns / (ns + 1.0f);",
         "pos_d = neg_d = it >= 256 ? (ns + 1.0f) / (ns + 2.0f) "
@@ -68,7 +78,7 @@ MUTANTS = {
         "alpha = p.linear ? 2.0f / (n_it + 2.0f) : 1.0f / (n_it + 1.0f);",
         "alpha = p.linear ? 2.0f / (n_it + (it >= 256 ? 3.0f : 2.0f)) "
         ": 1.0f / (n_it + 1.0f);",
-        CFR_PHASES),
+        "cfr-checks," + CFR_PHASES),
     # CFR: the discount off by one from iteration 16 (caught since the
     # first slice by the 64-iteration statistics; here by exploitability).
     "cfr-discount-16": (
@@ -82,6 +92,25 @@ MUTANTS = {
         "s_tstop[l] = p.t_stop[lane0 + l];",
         "s_tstop[l] = p.t_stop[blockIdx.x * p.LB + l];",
         KNOB_PHASES),
+    # The iteration body.  The work split: the lane multiplier one short,
+    # so that the first lane of every reach item but the first is dealt as
+    # lane LB of the item before, one past the group's lanes.  A dropped
+    # group barrier: the root values read level-1 values that other
+    # threads may not have written yet.  One lane's snapshot an iteration
+    # late: the second lane of every group stops one iteration after its
+    # t_stop.
+    "split-lane-edge": (
+        "p.mul_LB = (uint32_t)ints[23];",
+        "p.mul_LB = (uint32_t)ints[23] - 1u;",
+        CHECK_PHASES),
+    "barrier-dropped": (
+        "            V1[(l * A + a1) * H + h] = v;\n        }\n        gsync();",
+        "            V1[(l * A + a1) * H + h] = v;\n        }",
+        CHECK_PHASES),
+    "snapshot-late": (
+        "s_tstop[l] = p.t_stop[lane0 + l];",
+        "s_tstop[l] = p.t_stop[lane0 + l] + (l == 1);",
+        CHECK_PHASES),
     # The tensor-core MLP (bf16): the hidden layers' B operand read one
     # 8-column group on (output column n takes weight column n + 8), the
     # head's B fragment with its two k halves swapped, and LayerNorm's row
@@ -103,7 +132,7 @@ MUTANTS = {
 }
 
 
-def run(name: str) -> bool:
+def run(name: str) -> str:
     old, new, phases = MUTANTS[name]
     with tempfile.TemporaryDirectory(prefix=f"mutant-{name}-") as tmp:
         tmp = pathlib.Path(tmp)
@@ -125,16 +154,29 @@ def run(name: str) -> bool:
         proc = subprocess.run(
             [sys.executable, "chip_smoke.py", "--phases", phases],
             cwd=tmp, capture_output=True, text=True)
-    lines = [ln for ln in (proc.stdout + proc.stderr).splitlines()
-             if ln.startswith(("check ", "control ", "chip_smoke:"))
-             or "walked episodes" in ln or "Error" in ln]
-    caught = any("MISS" in ln for ln in lines)
+    verdict, lines = judge(proc.returncode,
+                           (proc.stdout + proc.stderr).splitlines())
     print(f"=== mutant {name} (phases {phases}): exit {proc.returncode}, "
-          f"{'CAUGHT' if caught else 'not caught'}")
+          f"{verdict}")
     for ln in lines:
         print(f"    {ln}")
     sys.stdout.flush()
-    return caught
+    return verdict
+
+
+def judge(returncode: int, output: list[str]) -> tuple[str, list[str]]:
+    """The verdict on one mutant's run of ``chip_smoke.py`` and the lines
+    of its output that show it: every check line and error, or the last
+    40 lines where the harness failed."""
+    lines = [ln for ln in output
+             if ln.startswith(("check ", "control ", "chip_smoke:"))
+             or "walked episodes" in ln or "Error" in ln]
+    if any("MISS" in ln for ln in lines if not ln.startswith("control ")) \
+            or any(f in ln for ln in output for f in KERNEL_FAULTS):
+        return "CAUGHT", lines
+    if returncode != 0:
+        return "harness failed", output[-40:]
+    return "not caught", lines
 
 
 def main() -> int:
@@ -144,8 +186,8 @@ def main() -> int:
         raise SystemExit(f"unknown mutants {unknown}; known: "
                          f"{list(MUTANTS)}")
     verdicts = {name: run(name) for name in names}
-    print(f"mutants caught: {verdicts}")
-    return 0
+    print(f"mutants: {verdicts}")
+    return int("harness failed" in verdicts.values())
 
 
 if __name__ == "__main__":

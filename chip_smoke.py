@@ -28,7 +28,7 @@ an H100, ``sm_90a``).  It
    and two epochs through ``grid2_cfr``;
 5. ``cfr-shapes``: holds ``grid2_cfr`` to its plain version at that path's
    shapes (4 iterations on random states; 1024 iterations on the walked
-   episodes), and times both;
+   episodes), and times both, and the kernel with an f32 MLP;
 6. ``eval``: evaluates the repo's two trained 1x4f nets by the paper
    protocol (``eval.recursive_eval.run_eval``: 1024 subgame iterations,
    depth-2 subgames, kernel engine, bf16 MLP, f32 solve) at 256 of its
@@ -67,7 +67,9 @@ an H100, ``sm_90a``).  It
    evaluation; holds the experiment dir's files, the JAX package's metric
    names, both exploitabilities in [0, 2], the resume (epoch 2 from the
    checkpoint, the ring's count carried on) and ``ckpt/epoch2.params``
-   against the live net, and prints the epochs' generation, training,
+   against the live net, the resumed run's state (the net, the optimizer,
+   the replay ring) against a straight run of three epochs with
+   ``torch.equal``, and prints the epochs' generation, training,
    evaluation (by part) and checkpoint seconds and bytes;
 12. ``games``: the larger games (1x5f, 1x6f, 2x3f), CFR and FP, bf16 and
    f32, each with the repo's trained 256x2 net of that game and solver:
@@ -89,8 +91,9 @@ an H100, ``sm_90a``).  It
    evaluation of each 1x4f net against the kernel with an f32 MLP, with
    phase 7's limits (CFR over 16 subgame iterations, FP over 1024), and
    ``bench --layout batch_first`` for 2 steps;
-16. prints one ``{"kernels": [...]}`` line with the three kernels and
-   ``{"ok": true, "device": {...}}`` as the last line.
+16. prints the whole run's seconds, one ``{"kernels": [...]}`` line with
+   the three kernels and ``{"ok": true, "device": {...}}`` as the last
+   line.
 
 The launch counts of the kernels are set to 0 just before each of the
 paths (4, 6 for each net, 8, 10, each run of 11, 14) and read just after;
@@ -452,7 +455,7 @@ def main() -> int:
     dev = torch.device("cuda")
     failures: list[str] = []
     phase_s: dict[str, float] = {}  # host seconds per phase
-    mark = time.perf_counter()
+    mark = start = time.perf_counter()
     KERNELS = grid2p.KERNEL_NAMES
     # Per kernel: launches summed over the paths, and what the shape
     # phases measured.
@@ -898,6 +901,17 @@ def main() -> int:
         plain_ms, ref = time_plain(args)
         check_1024(args, out, ref, ties)
         report(kernel, trainer, kernel_ms, plain_ms, err)
+        # The same launch with an f32 MLP (FMA, weights read from device
+        # memory), as the in-training evaluation runs it.
+        f32_ms, out = time_kernel(args, reps=1, dtype=torch.float32)
+        flops = grid2p.mlp_flops_per_lane_iter(
+            game, trainer.cfg.n_hidden, trainer.cfg.n_layers) * B * ITERS
+        print(f"kernel {kernel} f32: {f32_ms:.3f} ms a launch at the same "
+              f"shapes, bound {flops / H100_F32_FLOPS * 1e3:.3f} ms "
+              f"({flops:.4e} FLOP at the f32 peak)")
+        if not finite(out):
+            failures.append(f"{kernel} f32 at the main shapes: non-finite "
+                            "outputs")
 
     def control_1024(args):
         """The plain version on the CPU on the first CONTROL_LANES lanes."""
@@ -1317,6 +1331,39 @@ def main() -> int:
         lap("bench")
 
     # --------------------------------------------------- 11. the run entry
+    def training_state_diffs(a, b) -> dict:
+        """Per part of two trainers' state (the net's parameters and
+        buffers, the optimizer's state and settings, the replay ring's rows
+        and counters): 0.0 where the two are equal (``torch.equal``), else
+        the largest absolute difference (inf where shapes or settings
+        differ)."""
+        def diff(x, y) -> float:
+            if torch.is_tensor(x):
+                # Adam keeps its step count on the host or on the card by
+                # how the state was made; the values are what counts.
+                x, y = x.cpu(), y.cpu()
+                if x.shape != y.shape:
+                    return math.inf
+                if torch.equal(x, y):
+                    return 0.0
+                return float((x.double() - y.double()).abs().max())
+            return 0.0 if repr(x) == repr(y) else math.inf
+
+        out = {}
+        for k, x in a.net.state_dict().items():
+            out[f"net.{k}"] = diff(x, b.net.state_dict()[k])
+        sa, sb = a.opt.state_dict(), b.opt.state_dict()
+        out["optimizer.param_groups"] = diff(sa["param_groups"],
+                                             sb["param_groups"])
+        for i, st in sa["state"].items():
+            for k, x in st.items():
+                out[f"optimizer.state.{i}.{k}"] = diff(x, sb["state"][i][k])
+        for k in ("queries", "values", "priorities", "head", "size",
+                  "num_add"):
+            out[f"replay.{k}"] = diff(getattr(a.replay, k),
+                                      getattr(b.replay, k))
+        return out
+
     def run_entry() -> None:
         """``python -m rebel_tpu_torch.run`` in process, as users train:
         two epochs from a fresh experiment dir (an exploit evaluation at
@@ -1413,6 +1460,30 @@ def main() -> int:
             if not all(math.isfinite(x) for x in (
                     lines[0]["loss/train"], lines[2]["loss/train"])):
                 failures.append("run-entry: non-finite training loss")
+
+            # The resume against a straight run: three epochs from a fresh
+            # dir in one process (no exploit evaluation, which changes no
+            # training state) must leave the state the resumed third epoch
+            # left, bit for bit.
+            t0 = time.perf_counter()
+            reset_counts()
+            straight = run_mod.execute([
+                "--cfg", str(ROOT / "conf" / "liars_sp.yaml"), "--exp_dir",
+                str(pathlib.Path(tmp) / "straight"), "--mode", "gentle_start",
+                *RUN_ENTRY_ARGS, "max_epochs=3", "exploit=false"]).trainer
+            torch.cuda.synchronize()
+            read_counts("run-entry straight", "grid2_cfr")
+            diffs = training_state_diffs(resumed, straight)
+            differ = {k: v for k, v in diffs.items() if v != 0.0}
+            print(f"  resumed epoch 2 against a straight run of 3 epochs: "
+                  f"{len(diffs) - len(differ)} of {len(diffs)} parts of the "
+                  f"state (net, optimizer, replay ring) bit-identical"
+                  f"{'' if not differ else ', differing: ' + str(differ)} "
+                  f"{'ok' if not differ else 'MISS'}; "
+                  f"{time.perf_counter() - t0:.2f} s added")
+            if differ:
+                failures.append(f"run-entry: the resumed run's state differs "
+                                f"from a straight run's: {sorted(differ)}")
 
     if "run-entry" in phases:
         run_entry()
@@ -1646,6 +1717,8 @@ def main() -> int:
         lap("fast-check")
 
     print(f"phase host seconds: {phase_s}")
+    print(f"whole run: {time.perf_counter() - start:.1f} s, the build "
+          "included")
     if failures:
         fail("; ".join(failures))
     if not whole:

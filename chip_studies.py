@@ -6,6 +6,7 @@ not checks: what ``PERF.md`` quotes beside ``chip_smoke.py``'s readings.
     python3 chip_studies.py f32-ladder --out DIR [--device cpu]
     python3 chip_studies.py sum-order --out DIR [--game 2x3] [--seed 62]
     python3 chip_studies.py eval-sum-order --out DIR [--game 2x3]
+    python3 chip_studies.py same-bits --old PATH --out DIR
 
 From the root of a checkout.  ``drift`` (card only): the exploitability
 of a ``--repeats``-repeat sampled evaluation (depth-2 subgames, the
@@ -31,7 +32,13 @@ held to the plain version's own; rows in ``DIR/sum_order.json``.
 ``--repeats``-repeat sampled evaluation over ``--iters`` subgame
 iterations at ``--game`` with bf16 operands, with the MLP's sums in f32
 and exact in f64, for each of ``--solvers``; rows in
-``DIR/eval_sum_order.json``.
+``DIR/eval_sum_order.json``.  ``same-bits`` (card only): builds ``--old``,
+another version of ``rebel_tpu_torch/kernels/grid2_cfr.cu``, beside the
+tree's and launches both on the same seeded inputs (:data:`SAME_BITS`:
+1x4f and 2x3f, CFR and FP, bf16 and f32 operands with the repo's trained
+net, no net, and ``interleave=2`` at 1x4f; 256 lanes, 1024 iterations,
+the chosen lane block), and compares the three outputs with
+``torch.equal``; rows in ``DIR/same_bits.json``.
 """
 
 from __future__ import annotations
@@ -188,6 +195,72 @@ def _kernel_epilogue_mlp(net):
         return x.T
 
     return mlp
+
+
+# same-bits: (game, solver, MLP operands: "bf16", "f32" or "none" for no
+# net, interleave), each over SAME_BITS_LANES lanes and SAME_BITS_ITERS
+# iterations from SAME_BITS_SEED
+SAME_BITS_LANES, SAME_BITS_ITERS, SAME_BITS_SEED = 256, 1024, 17
+SAME_BITS = [((nd, nf), solver, dtype, 1)
+             for nd, nf in ((1, 4), (2, 3)) for solver in ("cfr", "fp")
+             for dtype in ("bf16", "f32", "none")]
+SAME_BITS += [((1, 4), "cfr", dtype, 2) for dtype in ("bf16", "f32")]
+
+
+def same_bits(args) -> list[dict]:
+    import contextlib
+
+    import torch
+
+    from rebel_tpu_torch.eval.recursive_eval import _load_net
+    from rebel_tpu_torch.games.liars_dice import LiarsDice
+    from rebel_tpu_torch.mlp_breakdown import build_variants, using
+    from rebel_tpu_torch.solving import grid2p
+    from rebel_tpu_torch.solving.params import SubgameSolvingParams
+
+    if not torch.cuda.is_available():
+        raise SystemExit("same-bits runs on the card only")
+    dev = torch.device("cuda")
+    old = build_variants(args.old.read_text(), {"old": None}, "same_bits")
+    lanes, iters = SAME_BITS_LANES, SAME_BITS_ITERS
+    rows = []
+    for (nd, nf), solver, dtype, interleave in SAME_BITS:
+        game = LiarsDice(nd, nf)
+        A, H = game.num_actions, game.num_hands
+        g = torch.Generator().manual_seed(SAME_BITS_SEED)
+        expo = -torch.log(torch.rand((lanes, 2, H), generator=g))
+        inputs = [torch.randint(-1, A - 1, (lanes,), generator=g),
+                  torch.randint(0, 2, (lanes,), generator=g),
+                  expo / expo.sum(-1, keepdim=True),
+                  torch.randint(0, iters + 1, (lanes,), generator=g)]
+        net = (None if dtype == "none" else
+               _load_net(str(ROOT / NETS[(nd, nf), solver]), game, "cuda")[1])
+        sub = SubgameSolvingParams(num_iters=iters, max_depth=2,
+                                   use_cfr=solver == "cfr",
+                                   linear_update=True)
+        call = (game, sub, *[x.to(dev) for x in inputs], net,
+                torch.float32 if dtype == "f32" else torch.bfloat16)
+        outs = {}
+        for name in ("old", "tree"):
+            with (using(old["old"], other_layout=True) if name == "old"
+                  else contextlib.nullcontext()):
+                outs[name] = grid2p.solve(*call, interleave=interleave)
+                lane_block = grid2p.solve.last_lane_block
+        torch.cuda.synchronize()
+        row = dict(game=f"{nd}x{nf}", solver=solver, mlp=dtype,
+                   interleave=interleave, lanes=lanes, iters=iters,
+                   lane_block=lane_block)
+        for key in ("rvm", "snap0", "snap1"):
+            a, b = getattr(outs["old"], key), getattr(outs["tree"], key)
+            row[key] = dict(
+                equal=bool(torch.equal(a, b)),
+                max_abs_diff=float((a - b).abs().max()),
+                lanes_differing=int((a != b).flatten(1).any(1).sum()))
+        row["equal"] = all(row[k]["equal"] for k in ("rvm", "snap0", "snap1"))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        (args.out / "same_bits.json").write_text(json.dumps(rows, indent=1))
+    return rows
 
 
 def drift(args) -> list[dict]:
@@ -473,12 +546,16 @@ def main(argv=None) -> list[dict]:
     e.add_argument("--repeats", type=int, default=4)
     e.add_argument("--iters", type=int, default=1024)
     e.add_argument("--device", default="cuda")
+    b = sub.add_parser("same-bits")
+    b.add_argument("--old", type=pathlib.Path, required=True)
+    b.add_argument("--out", type=pathlib.Path, required=True)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     args.out.mkdir(parents=True, exist_ok=True)
     study = {"drift": drift, "f32-ladder": f32_ladder,
              "sum-order": sum_order,
-             "eval-sum-order": eval_sum_order}[args.study]
+             "eval-sum-order": eval_sum_order,
+             "same-bits": same_bits}[args.study]
     return study(args)
 
 

@@ -124,6 +124,29 @@ def nonet_ops_per_lane_iter(game: LiarsDice, use_cfr: bool) -> float:
     return reach + terminal + backup + update + 3 * H
 
 
+def split_mul(d: int) -> int:
+    """The multiplier with which the fused kernel divides an item index by
+    ``d >= 2`` (``split`` in ``grid2_cfr.cu``): ``(i * split_mul(d)) >> 32
+    == i // d`` for ``0 <= i`` and ``i * d < 2**32``.  It is
+    ``floor((2**32 - 1) / d) + 1``, which exceeds ``2**32 / d`` by less
+    than one."""
+    if d < 2:
+        raise ValueError(f"the work split divides by 2 or more, not {d}")
+    return (2**32 - 1) // d + 1
+
+
+def work_split(game: LiarsDice, lanes: int) -> tuple[int, int, int, int]:
+    """The kernel's work split, fixed once per launch for a group of
+    ``lanes`` lanes: the multipliers (:func:`split_mul`) that divide an
+    item's index by H (a row's hands, and the slots of H threads in a
+    warp), by A (the slots of A threads), by ``lanes`` (0 for one lane,
+    which needs no division) and by ``lanes`` H (the (row, lane, hand)
+    items of the terminal and level-1 phases)."""
+    A, H = game.num_actions, game.num_hands
+    return (split_mul(H), split_mul(A),
+            split_mul(lanes) if lanes > 1 else 0, split_mul(lanes * H))
+
+
 def gelu_erf(x: torch.Tensor) -> torch.Tensor:
     """GELU with erf from the Abramowitz-Stegun 7.1.26 polynomial
     (|erf err| < 1.5e-7): the kernel's f32-path GELU."""
@@ -298,7 +321,7 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
     state = [LB, LB, LB, LB * A, LB * 2 * H, LB * H * H, LB * H * A,
              LB * H * A, LB * A * H * A, LB * A * H * A, LB * 2 * H, LB * H,
              LB * A * H, LB * A * H, LB * H, P * LB * H, P * LB * H, P * LB,
-             P * LB * H, LB * A * H, LB * H]
+             P * LB * H, LB * A * H]
     if not use_cfr:  # the average policy
         state += [LB * H * A, LB * A * H * A]
     lanes = words(*state)
@@ -467,6 +490,11 @@ def kernel_plan(game: LiarsDice, params: SubgameSolvingParams,
     if batch % lane_block:
         raise ValueError(f"batch {batch} is not a multiple of lane_block "
                          f"{lane_block}")
+    if game.num_hands > 32 or game.num_actions > 32:
+        raise ValueError(
+            f"the kernel deals a row's hands or actions to the threads of a "
+            f"warp: it takes at most 32 of each, not {game.num_hands} hands "
+            f"and {game.num_actions} actions")
     bf16 = net_compute_dtype == torch.bfloat16
     n_hidden = n_layers = 0
     if net is not None:
@@ -612,6 +640,9 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
             int(not params.use_cfr), int(params.optimistic),
             ACTIVATIONS.index(plan.act), int(ablate != "noln"),
             plan.mlp_chunks, plan.groups]
+    # The multipliers are unsigned 32-bit: passed as the ints of their bits.
+    ints += [m - 2**32 if m >= 2**31 else m
+             for m in work_split(game, lane_block // plan.groups)]
     c_ints = (ctypes.c_int * len(ints))(*ints)
     lib = build.load("grid2_cfr")
     _declare(lib)

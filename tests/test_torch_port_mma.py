@@ -193,15 +193,15 @@ def test_smem_reckoning_at_the_default_lane_block():
     """1x4f, 256x2 net, lane block 8, bf16: the weights 143,360 B as
     stored before (bf16, first layer padded to 20 rows) and 151,552 B
     padded for the instructions (32 rows, head 8 columns), their f32 parameters 6,176
-    B, the barrier 16 B, CTA tables 1,136 B, lane state 4,992 B a lane
-    (CFR) and 6,432 B (FP), no activations staged; all fit."""
+    B, the barrier 16 B, CTA tables 1,136 B, lane state 4,976 B a lane
+    (CFR) and 6,416 B (FP), no activations staged; all fit."""
     shapes = grid2p.mlp_block_shapes(GAME, 256, 2)
     assert sum(2 * n * k for n, k in shapes) == 151552
     qpad = 20  # the f32 kernel's padding of the query size 19 to 4
     assert 2 * (qpad * 256 + 256 * 256 + 256 * 4) == 143360
     assert grid2p.mlp_block_bytes(GAME, 256, 2) == 151552 + 6176
-    for use_cfr, per_lane, total in ((True, 4992, 198816),
-                                     (False, 6432, 210336)):
+    for use_cfr, per_lane, total in ((True, 4976, 198688),
+                                     (False, 6416, 210208)):
         got = grid2p.smem_layout(GAME, 8, use_cfr, 256, 2, True)
         assert got == dict(mlp=151552 + 6176 + 16, tables=1136,
                            lanes=8 * per_lane, staging=0, total=total)
@@ -215,10 +215,10 @@ def test_smem_reckoning_at_the_default_lane_block():
     "lane_block,use_cfr,mlp_chunks,bf16,total",
     # The kernel's own figures for the f32 staging at lane block 8 and FP
     # at 16 (its grid2_cfr_smem_bytes on the card, PERF.md).
-    [(8, True, 1, False, 517744), (8, True, 2, False, 313456),
-     (8, True, 3, False, 245360), (16, False, 7, False, 240240),
-     (8, True, 7, False, 109168), (12, True, 1, True, 218784),
-     (12, False, 1, True, 236064), (16, True, 1, True, 238752)])
+    [(8, True, 1, False, 517616), (8, True, 2, False, 313328),
+     (8, True, 3, False, 245232), (16, False, 7, False, 239984),
+     (8, True, 7, False, 109040), (12, True, 1, True, 218592),
+     (12, False, 1, True, 235872), (16, True, 1, True, 238496)])
 def test_smem_reckoning_matches_the_kernel(lane_block, use_cfr, mlp_chunks,
                                            bf16, total):
     got = grid2p.smem_layout(GAME, lane_block, use_cfr, 256, 2, bf16,
@@ -251,8 +251,8 @@ def test_plan_raises_before_any_launch(kw, match):
 
 
 @pytest.mark.parametrize("use_cfr,interleave,groups,smem",
-                         [(True, 1, 1, 198816), (False, 1, 1, 210336),
-                          (True, 2, 2, 198816), (False, 2, 1, 210336)])
+                         [(True, 1, 1, 198688), (False, 1, 1, 210208),
+                          (True, 2, 2, 198688), (False, 2, 1, 210208)])
 def test_plan_at_the_main_path(use_cfr, interleave, groups, smem):
     """The main path's launch: lane block 8, bf16, one group of pairs (the
     least row padding), fits; interleave=2 takes the two-group kernel for
@@ -312,15 +312,17 @@ def test_source_edits_of_the_chip_scripts_apply():
     from rebel_tpu_torch.kernels import build
 
     src = (build.KERNEL_DIR / "grid2_cfr.cu").read_text()
-    for name, edit in mlp_breakdown.VARIANTS.items():
-        assert edit is None or src.count(edit[0]) == 1, name
+    variants = {**mlp_breakdown.VARIANTS, **mlp_breakdown.BODY_VARIANTS}
+    for name, edits in variants.items():
+        assert name == "whole" or edits, name
+        for old, new in edits or ():
+            assert src.count(old) == 1 and old != new, name
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_mutants.py"
     spec = importlib.util.spec_from_file_location("chip_mutants", path)
     mutants = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mutants)
-    for name in ("mma-b-shift", "mma-head-fragment", "mma-ln-stats"):
-        old, new, _ = mutants.MUTANTS[name]
-        assert src.count(old) == 1 and old != new, name
+    for name, (old, new, _) in mutants.MUTANTS.items():
+        assert old is None or (src.count(old) == 1 and old != new), name
 
 
 def test_breakdown_needs_the_card():
