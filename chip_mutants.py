@@ -129,6 +129,20 @@ MUTANTS = {
         "for (int off = 1; off < 4; off <<= 1) {",
         "for (int off = 2; off < 8; off <<= 1) {",
         KNOB_PHASES),
+    # The f32 MLP: every warp reads a ring stage without waiting on its
+    # full barrier (before the slab's copy may have landed), and the
+    # epilogue's column map shifted by one (column j takes the bias of
+    # column j + 1; the checks' nets keep LayerNorm's scale 1 and bias 0,
+    # so a shift of those columns alone changes nothing there).  The bf16
+    # kernels do not run this code.
+    "ring-no-wait": (
+        "    mbar_wait(g.full + s, parity);\n    f(g.stages",
+        "    f(g.stages",
+        CHECK_PHASES),
+    "epilogue-column-shift": (
+        "        const float b = __ldg(bias + lane + 32 * i);",
+        "        const float b = __ldg(bias + (lane + 1 + 32 * i) % NH);",
+        CHECK_PHASES),
 }
 
 

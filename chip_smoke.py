@@ -12,8 +12,8 @@ an H100, ``sm_90a``).  It
    two-group CFR kernel ``grid2_cfr_il2``, each in f32 and with bf16
    operands) with ``nvcc``; prints each instantiation's registers, spills
    and shared memory at the main path's lane block, and the tensor-core
-   instructions (``HGMMA``, ``HMMA``) in its machine code, which every bf16
-   instantiation must have and no f32 one may;
+   instructions (``HGMMA``, ``HMMA``) in its machine code: ``HGMMA`` in
+   every bf16 instantiation, neither in an f32 one;
 2. ``cfr-checks``: holds ``grid2_cfr`` against its plain PyTorch version
    (``solving.grid2p.solve_reference``) on the card at 1x4f, B=256: f32
    with LayerNorm, f32 without LayerNorm, no net, bf16 with the fast GELU,
@@ -50,8 +50,9 @@ an H100, ``sm_90a``).  It
    Then, on the walked episodes of phase 4 over 64 and 1024 iterations in
    f32 and bf16: every ``mlp_chunks`` and ``interleave=2`` give the same
    bits as the default (``torch.equal`` on all three outputs); a layout
-   that does not fit a block's shared memory (f32 staging, bf16 weights
-   beside the lanes' state) raises before any launch; and
+   that does not fit a block's shared memory (the lanes' state beside the
+   bf16 weights, or beside the f32 MLP's rows and ring) raises before any
+   launch; and
    ``grid2_cfr_il2`` is held to its plain version and timed at the
    self-play path's shapes;
 10. ``bench``: runs the generation benchmark
@@ -251,22 +252,24 @@ EXPLOIT_RTOL = {"cfr": 0.10, "fp": 0.02}
 # worst lane reads up to 5e-02; PERF.md); the
 # kernel with "cheaperf" and gelu="exact" must be PRECEDENCE_FACTOR times
 # closer to the plain fast GELU than to the plain exact one; and the values
-# of mlp_chunks held to the default bit for bit are, at the default lane
-# block of 8, some of those that fit, and 1 and 2 at a lane block of 2
-# (bf16 stages nothing, so every value fits and 1 is its default).
+# of mlp_chunks held to the default bit for bit are, by lane block, some
+# at the default lane block of 8 and 1 and 2 at a lane block of 2 (neither
+# MLP stages a group of pairs, so every value fits and 1 is the default
+# at 1x4f in f32 and bf16 alike).
 MOST_LANES = 0.9
 MOST_LANES_TOL = {"f32": 1e-5, "bf16": 1e-4}
 PRECEDENCE_FACTOR = 4
-KNOB_CHUNKS = {"f32": {8: (4, 7, 28), 2: (1, 2)},
-               "bf16": {8: (2, 4, 7, 28), 2: (1, 2)}}
-KNOB_CHUNKS_TOO_LARGE = {"f32": (1, 2, 3), "bf16": ()}  # at a lane block of 8
+KNOB_CHUNKS = {8: (2, 4, 7, 28), 2: (1, 2)}
 
-# The instantiations of grid2_kernel<WT, CPT, FP, NG> by their mangled
-# names' template arguments (FP, NG), and whether WT is bf16.
+# The instantiations of grid2_kernel<WT, FP, NG> by their mangled
+# names' template arguments (FP, NG), and the MLP's operands WT (the f32
+# ones also run without a net).
 INSTANTIATION = re.compile(
-    r"grid2_kernelI(13__nv_bfloat16|f)Li\d+ELb([01])ELi([12])E")
+    r"grid2_kernelI(13__nv_bfloat16|f)Lb([01])ELi([12])E")
 KERNEL_OF = {("0", "1"): "grid2_cfr", ("1", "1"): "grid2_fp",
              ("0", "2"): "grid2_cfr_il2"}
+OPERANDS_OF = {"13__nv_bfloat16": "bf16", "f": "f32"}
+INSTANTIATIONS = 6
 
 PHASES = ("cfr-checks", "fp-checks", "cfr-selfplay", "cfr-shapes", "eval",
           "exploit-check", "fp-selfplay", "knob-checks", "bench", "run-entry",
@@ -309,7 +312,7 @@ GAMES_PLAIN_CHUNK = 16384
 # (game, solver, operand type, blocks).
 LANE_BLOCK_PAIRS = (((2, 3), "cfr", "bf16", (1, 2)),
                     ((1, 6), "fp", "bf16", (1, 2)),
-                    ((2, 3), "fp", "f32", (1, 4)),
+                    ((2, 3), "fp", "f32", (1, 2)),
                     ((2, 3), "cfr", "f32", (1, 4)))
 # The fast engine's check (phase 15) over each solver's subgame
 # iterations: CFR's f32 iterates are chaotic, so that two correct f32
@@ -349,12 +352,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def instantiation(mangled: str) -> tuple[str, bool] | None:
-    """``(kernel name, bf16)`` of a mangled grid2_kernel name."""
+def instantiation(mangled: str) -> tuple[str, str] | None:
+    """``(kernel name, MLP operands)`` of a mangled grid2_kernel name."""
     m = INSTANTIATION.search(mangled)
     if m is None:
         return None
-    return KERNEL_OF[m[2], m[3]], m[1] != "f"
+    return KERNEL_OF[m[2], m[3]], OPERANDS_OF[m[1]]
 
 
 def build_report(build, grid2p, game, failures: list) -> None:
@@ -398,24 +401,26 @@ def build_report(build, grid2p, game, failures: list) -> None:
         print(f"  cuobjdump not found at {cuobjdump}: the tensor-core "
               "instructions are not counted")
     params = {"grid2_fp": False}
-    for (kernel, bf16), got in sorted(props.items()):
+    for (kernel, operands), got in sorted(props.items()):
         groups = 2 if kernel == "grid2_cfr_il2" else 1
         smem = grid2p.smem_layout(
-            game, 8, params.get(kernel, True), 256, 2, bf16, groups,
-            grid2p.default_mlp_chunks(len(grid2p.pseudo_leaf_pairs(game)), 8,
-                                      groups, bf16))["total"]
-        print(f"  {kernel} {'bf16' if bf16 else 'f32'}: "
+            game, 8, params.get(kernel, True), 256, 2, operands == "bf16",
+            groups)["total"]
+        print(f"  {kernel} {operands}: "
               f"{got.get('registers')} registers, spill stores "
               f"{got.get('spill_stores')} B, spill loads "
               f"{got.get('spill_loads')} B, shared memory {smem} B at lane "
               f"block 8; HGMMA {got.get('HGMMA', 'not counted')}, HMMA "
               f"{got.get('HMMA', 'not counted')}")
-        if sass is not None and bf16 != (got.get("HGMMA", 0) > 0):
-            failures.append(f"{kernel} {'bf16' if bf16 else 'f32'}: "
-                            f"{got.get('HGMMA', 0)} HGMMA instructions")
-    if len(props) != 6:
+        tensor = (got.get("HGMMA", 0), got.get("HMMA", 0))
+        if sass is not None and (tensor[0] == 0 if operands == "bf16"
+                                 else any(tensor)):
+            failures.append(f"{kernel} {operands}: {got.get('HGMMA', 0)} "
+                            f"HGMMA and {got.get('HMMA', 0)} HMMA "
+                            "instructions")
+    if len(props) != INSTANTIATIONS:
         failures.append(f"build: {len(props)} instantiations of grid2_kernel "
-                        "found, expected 6")
+                        f"found, expected {INSTANTIATIONS}")
 
 
 def main() -> int:
@@ -901,8 +906,8 @@ def main() -> int:
         plain_ms, ref = time_plain(args)
         check_1024(args, out, ref, ties)
         report(kernel, trainer, kernel_ms, plain_ms, err)
-        # The same launch with an f32 MLP (FMA, weights read from device
-        # memory), as the in-training evaluation runs it.
+        # The same launch with an f32 MLP (FMA, the hidden matrix streamed
+        # through shared memory), as the in-training evaluation runs it.
         f32_ms, out = time_kernel(args, reps=1, dtype=torch.float32)
         flops = grid2p.mlp_flops_per_lane_iter(
             game, trainer.cfg.n_hidden, trainer.cfg.n_layers) * B * ITERS
@@ -1195,7 +1200,7 @@ def main() -> int:
             for dtype in (f32, bf16):
                 name = "bf16" if dtype == bf16 else "f32"
                 base = grid2p.solve(*args, dtype)
-                for lane_block, values in KNOB_CHUNKS[name].items():
+                for lane_block, values in KNOB_CHUNKS.items():
                     lanes = B if lane_block == 8 else 256
                     part = (*args[:2], *(x[:lanes] for x in args[2:6]),
                             args[6])
@@ -1229,10 +1234,10 @@ def main() -> int:
             TOL_BF16_TRAINED)
 
         # Which layouts fit a block's shared memory: every mlp_chunks at
-        # lane_block 8 in both operand types (f32 stages a group of pairs'
-        # activations; bf16 stages none but keeps the weights), and the
-        # lane blocks and depths that bf16's weights leave room for.  A
-        # layout that does not fit must raise before anything launches.
+        # lane_block 8 in both operand types (neither stages a group of
+        # pairs, so all fit), and the lane blocks and depths that bf16's
+        # weights and f32's rows and ring leave room for.  A layout that
+        # does not fit must raise before anything launches.
         def fits(label, *a, **knobs) -> str:
             before = grid2p.solve.launches
             try:
@@ -1252,10 +1257,8 @@ def main() -> int:
                 got = fits(f"{name} {knobs}", *args, dtype, lane_block=8,
                            **knobs)
                 told.setdefault(got, []).append(knobs)
-                large = knobs["mlp_chunks"] in KNOB_CHUNKS_TOO_LARGE[name]
-                if "interleave" not in knobs and large == (got == "fits"):
-                    failures.append(f"{name} mlp_chunks={knobs['mlp_chunks']} "
-                                    f"at lane_block 8: {got}")
+                if got != "fits":
+                    failures.append(f"{name} {knobs} at lane_block 8: {got}")
             for got, knobs in told.items():
                 print(f"  {name} lane_block 8, {len(knobs)} settings "
                       f"({knobs[0]} .. {knobs[-1]}): {got}")
@@ -1268,8 +1271,13 @@ def main() -> int:
                                            args[6]), dict(lane_block=12),
                  False),
                 ("bf16 cfr 3 hidden layers", (*args[:6], net3_dev),
-                 dict(lane_block=8), False)):
-            got = fits(label, *a, bf16, **knobs)
+                 dict(lane_block=8), False),
+                ("f32 cfr lane_block 16", args, dict(lane_block=16), True),
+                ("f32 fp lane_block 24", (game, fp(CHECK_ITERS), *(
+                    x[:1008] for x in args[2:6]), args[6]),
+                 dict(lane_block=24), False)):
+            dtype = f32 if label.startswith("f32") else bf16
+            got = fits(label, *a, dtype, **knobs)
             print(f"  {label}: {got}")
             if (got == "fits") != want:
                 failures.append(f"{label}: {got}")

@@ -32,13 +32,17 @@ held to the plain version's own; rows in ``DIR/sum_order.json``.
 ``--repeats``-repeat sampled evaluation over ``--iters`` subgame
 iterations at ``--game`` with bf16 operands, with the MLP's sums in f32
 and exact in f64, for each of ``--solvers``; rows in
-``DIR/eval_sum_order.json``.  ``same-bits`` (card only): builds ``--old``,
-another version of ``rebel_tpu_torch/kernels/grid2_cfr.cu``, beside the
-tree's and launches both on the same seeded inputs (:data:`SAME_BITS`:
-1x4f and 2x3f, CFR and FP, bf16 and f32 operands with the repo's trained
-net, no net, and ``interleave=2`` at 1x4f; 256 lanes, 1024 iterations,
-the chosen lane block), and compares the three outputs with
-``torch.equal``; rows in ``DIR/same_bits.json``.
+``DIR/eval_sum_order.json``.  ``same-bits`` (card only): ``--old`` is
+``rebel_tpu_torch/kernels/grid2_cfr.cu`` inside a checkout of another
+version of the port (e.g. ``git archive c7fda4d rebel_tpu_torch | tar -x
+-C _parent``); each version's own package builds its kernel, chooses its
+lane block and ``mlp_chunks`` and launches it on the same seeded inputs
+(:data:`SAME_BITS`: 1x4f and 2x3f, CFR and FP, bf16 and f32 operands with
+the repo's trained net, no net, and ``interleave=2`` at 1x4f; 1024 lanes,
+1024 iterations), in processes taken in turns (:data:`SAME_BITS_TURNS`);
+the three outputs are compared with ``torch.equal`` and each mode's
+launch is timed for both versions on the one card (``ms_old``,
+``ms_tree``); rows in ``DIR/same_bits.json``.
 """
 
 from __future__ import annotations
@@ -199,29 +203,35 @@ def _kernel_epilogue_mlp(net):
 
 # same-bits: (game, solver, MLP operands: "bf16", "f32" or "none" for no
 # net, interleave), each over SAME_BITS_LANES lanes and SAME_BITS_ITERS
-# iterations from SAME_BITS_SEED
-SAME_BITS_LANES, SAME_BITS_ITERS, SAME_BITS_SEED = 256, 1024, 17
+# iterations from SAME_BITS_SEED.  Each version runs in SAME_BITS_RUNS
+# processes in turns (old, tree, tree, old); a process launches every mode
+# once for its outputs, then SAME_BITS_TIMED times, timed with CUDA events.
+SAME_BITS_LANES, SAME_BITS_ITERS, SAME_BITS_SEED = 1024, 1024, 17
+SAME_BITS_TIMED = 2
+SAME_BITS_TURNS = ("old", "tree", "tree", "old")
 SAME_BITS = [((nd, nf), solver, dtype, 1)
              for nd, nf in ((1, 4), (2, 3)) for solver in ("cfr", "fp")
              for dtype in ("bf16", "f32", "none")]
 SAME_BITS += [((1, 4), "cfr", dtype, 2) for dtype in ("bf16", "f32")]
 
 
-def same_bits(args) -> list[dict]:
-    import contextlib
-
+def same_bits_launch(args) -> list[dict]:
+    """One process of ``same-bits``: every mode through the package under
+    ``--root`` (this checkout's or another's), outputs and times saved to
+    ``--out`` (a ``torch.save`` file)."""
     import torch
 
+    import rebel_tpu_torch
     from rebel_tpu_torch.eval.recursive_eval import _load_net
     from rebel_tpu_torch.games.liars_dice import LiarsDice
-    from rebel_tpu_torch.mlp_breakdown import build_variants, using
     from rebel_tpu_torch.solving import grid2p
     from rebel_tpu_torch.solving.params import SubgameSolvingParams
 
-    if not torch.cuda.is_available():
-        raise SystemExit("same-bits runs on the card only")
+    if not pathlib.Path(rebel_tpu_torch.__file__).resolve().is_relative_to(
+            args.root.resolve()):
+        raise SystemExit(f"imported {rebel_tpu_torch.__file__}, not the "
+                         f"package under {args.root}")
     dev = torch.device("cuda")
-    old = build_variants(args.old.read_text(), {"old": None}, "same_bits")
     lanes, iters = SAME_BITS_LANES, SAME_BITS_ITERS
     rows = []
     for (nd, nf), solver, dtype, interleave in SAME_BITS:
@@ -240,18 +250,65 @@ def same_bits(args) -> list[dict]:
                                    linear_update=True)
         call = (game, sub, *[x.to(dev) for x in inputs], net,
                 torch.float32 if dtype == "f32" else torch.bfloat16)
-        outs = {}
-        for name in ("old", "tree"):
-            with (using(old["old"], other_layout=True) if name == "old"
-                  else contextlib.nullcontext()):
-                outs[name] = grid2p.solve(*call, interleave=interleave)
-                lane_block = grid2p.solve.last_lane_block
-        torch.cuda.synchronize()
-        row = dict(game=f"{nd}x{nf}", solver=solver, mlp=dtype,
-                   interleave=interleave, lanes=lanes, iters=iters,
-                   lane_block=lane_block)
-        for key in ("rvm", "snap0", "snap1"):
-            a, b = getattr(outs["old"], key), getattr(outs["tree"], key)
+        out = [x.cpu() for x in grid2p.solve(*call, interleave=interleave)]
+        times = []
+        for _ in range(SAME_BITS_TIMED):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            grid2p.solve(*call, interleave=interleave)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        rows.append(dict(game=f"{nd}x{nf}", solver=solver, mlp=dtype,
+                         interleave=interleave, lanes=lanes, iters=iters,
+                         lane_block=grid2p.solve.last_lane_block,
+                         ms=times, out=out))
+    torch.save(rows, args.out)
+    return rows
+
+
+def same_bits(args) -> list[dict]:
+    """Runs ``same_bits_launch`` for the version around ``--old`` and for
+    this checkout in SAME_BITS_TURNS, and compares the first processes'
+    outputs with ``torch.equal`` (and each version's outputs across its
+    own processes: the kernel is deterministic)."""
+    import subprocess
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("same-bits runs on the card only")
+    old_root = args.old.resolve().parents[2]
+    if args.old.resolve() != (old_root / "rebel_tpu_torch" / "kernels"
+                              / "grid2_cfr.cu"):
+        raise SystemExit(f"--old must be rebel_tpu_torch/kernels/"
+                         f"grid2_cfr.cu inside a checkout of another "
+                         f"version, not {args.old}")
+    roots = {"old": old_root, "tree": ROOT}
+    runs = {"old": [], "tree": []}
+    for i, version in enumerate(SAME_BITS_TURNS):
+        path = args.out.resolve() / f"same_bits_{version}_{i}.pt"
+        subprocess.run([sys.executable, str(ROOT / "chip_studies.py"),
+                        "same-bits-launch", "--root", str(roots[version]),
+                        "--out", str(path)], cwd=roots[version], check=True)
+        runs[version].append(torch.load(path))
+        path.unlink()
+    rows = []
+    for k, old in enumerate(runs["old"][0]):
+        tree = runs["tree"][0][k]
+        row = {key: old[key] for key in ("game", "solver", "mlp",
+                                         "interleave", "lanes", "iters")}
+        row.update(lane_block_old=old["lane_block"],
+                   lane_block_tree=tree["lane_block"])
+        for version, got in runs.items():
+            ms = [t for run in got for t in run[k]["ms"]]
+            row[f"ms_{version}"] = sum(ms) / len(ms)
+            row[f"{version}_repeats_equal"] = all(
+                torch.equal(x, y) for run in got[1:]
+                for x, y in zip(got[0][k]["out"], run[k]["out"]))
+        for key, a, b in zip(("rvm", "snap0", "snap1"), old["out"],
+                             tree["out"]):
             row[key] = dict(
                 equal=bool(torch.equal(a, b)),
                 max_abs_diff=float((a - b).abs().max()),
@@ -259,7 +316,7 @@ def same_bits(args) -> list[dict]:
         row["equal"] = all(row[k]["equal"] for k in ("rvm", "snap0", "snap1"))
         rows.append(row)
         print(json.dumps(row), flush=True)
-        (args.out / "same_bits.json").write_text(json.dumps(rows, indent=1))
+    (args.out / "same_bits.json").write_text(json.dumps(rows, indent=1))
     return rows
 
 
@@ -549,7 +606,13 @@ def main(argv=None) -> list[dict]:
     b = sub.add_parser("same-bits")
     b.add_argument("--old", type=pathlib.Path, required=True)
     b.add_argument("--out", type=pathlib.Path, required=True)
+    bl = sub.add_parser("same-bits-launch")
+    bl.add_argument("--root", type=pathlib.Path, required=True)
+    bl.add_argument("--out", type=pathlib.Path, required=True)
     args = ap.parse_args(argv)
+    if args.study == "same-bits-launch":
+        sys.path.insert(0, str(args.root))
+        return same_bits_launch(args)
     sys.path.insert(0, str(ROOT))
     args.out.mkdir(parents=True, exist_ok=True)
     study = {"drift": drift, "f32-ladder": f32_ladder,

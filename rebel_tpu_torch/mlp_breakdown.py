@@ -1,7 +1,7 @@
 """Where a launch of the fused solve spends its time, on the card.
 
     python -m rebel_tpu_torch.mlp_breakdown [--rounds 2] [--batch 1024]
-        [--parts mlp,body]
+        [--parts mlp,mlp32,body]
 
 Builds variants of ``kernels/grid2_cfr.cu`` with one part taken out beside
 the source as it is, and times one launch of each with CUDA events, in
@@ -13,6 +13,14 @@ time means something.  Prints one JSON line per reading.
   LayerNorm, random weights from a seed, ``--batch`` lanes, 1024
   iterations, lane block 8) for CFR and fictitious play; then the whole
   kernel with the ablations and without a net.
+* ``mlp32``: the parts of the f32 MLP stage (the FMA products, the
+  epilogue of the hidden layers, the head, the ring: its waits, barriers
+  and copies, the weights then read from its first stage) at the
+  :data:`MLP32_CELLS`: 1x4f at lane block 8 for CFR and FP and 2x3f for
+  CFR at its chosen lane block, 256x2 net with LayerNorm, random weights
+  from a seed; then, as a yardstick the port never calls, the MLP's
+  products as ``torch.matmul`` in f32 (no TF32) at one iteration's rows
+  of ``--batch`` lanes, per iteration and for 1024 iterations.
 * ``body``: the phases of the iteration around the MLP (snapshots, reach
   grids, terminal values, level-1 values, root values with the running
   mean, the update) at the :data:`BODY_CELLS`: 1x4f at lane block 8
@@ -47,6 +55,27 @@ VARIANTS = {
                      "        continue;\n        const float* bias = f32 + 3 * k * NH;")],
     "no head": [("for (int nt = 0; nt < mlp_hn(p.H) / 8; ++nt) {",
                  "for (int nt = 0; nt < 0; ++nt) {")],
+}
+
+# The f32 MLP's parts.  "no ring": every slab is read from the first stage
+# of the ring, with no wait, barrier or copy after the set-up's.
+MLP32_VARIANTS = {
+    "no products": [("    for (int k = 0; k < K; k += 4) {\n        float4 a",
+                     "    for (int k = 0; k < 0; k += 4) {\n        float4 a")],
+    "no epilogue": [("float (&v)[WARP_ROWS][8], int k, int lane) {\n",
+                     "float (&v)[WARP_ROWS][8], int k, int lane) {\n"
+                     "    return;\n")],
+    "no head": [("for (int h0 = 0; h0 < p.H; h0 += 4) {",
+                 "for (int h0 = 0; h0 < 0; h0 += 4) {")],
+    "no ring": [("    const int s = g.n % RING_STAGES, parity",
+                 "    f(g.stages);\n    ++g.n;\n    return;\n"
+                 "    const int s = g.n % RING_STAGES, parity")],
+}
+# name: (game (dice, faces), CFR, lane block; None: the chosen one)
+MLP32_CELLS = {
+    "1x4 cfr f32": ((1, 4), True, 8),
+    "1x4 fp f32": ((1, 4), False, 8),
+    "2x3 cfr f32": ((2, 3), True, None),
 }
 
 # The body's phases.
@@ -106,29 +135,9 @@ def build_variants(src: str, variants: dict, tag: str) -> dict:
     return libs
 
 
-class OtherLayout:
-    """A library built from another version of ``grid2_cfr.cu``, whose
-    shared-memory layout may differ from the tree's.  ``grid2p.solve``
-    holds the tree's reckoning (``smem_layout``) to the library's own and
-    refuses a launch where they differ; this one answers with the tree's
-    library and launches with its own layout (a layout that does not fit
-    makes the launch fail, which ``solve`` raises)."""
-
-    def __init__(self, lib, tree):
-        self._lib, self.grid2_cfr_smem_bytes = lib, tree.grid2_cfr_smem_bytes
-
-    def __getattr__(self, name):
-        return getattr(self._lib, name)
-
-
 @contextlib.contextmanager
-def using(lib, other_layout: bool = False):
-    """``grid2p.solve`` launches from ``lib`` inside the block;
-    ``other_layout``: ``lib`` is another version (:class:`OtherLayout`)."""
-    if other_layout:
-        tree = build.load("grid2_cfr")
-        grid2p._declare(tree)
-        lib = OtherLayout(lib, tree)
+def using(lib):
+    """``grid2p.solve`` launches from ``lib`` inside the block."""
     before = build._loaded.get("grid2_cfr")
     build._loaded["grid2_cfr"] = lib
     try:
@@ -166,10 +175,10 @@ def random_states(game: LiarsDice, batch: int, dev) -> list:
             torch.randint(0, 1025, (batch,), generator=g).to(dev)]
 
 
-def solve_args(game, states, use_cfr, net):
+def solve_args(game, states, use_cfr, net, dtype=torch.bfloat16):
     return (game, SubgameSolvingParams(num_iters=1024, max_depth=2,
                                        use_cfr=use_cfr, linear_update=True),
-            *states, net, torch.bfloat16)
+            *states, net, dtype)
 
 
 def mlp_part(src: str, rounds: int, batch: int, dev) -> None:
@@ -203,6 +212,60 @@ def mlp_part(src: str, rounds: int, batch: int, dev) -> None:
                                   "ms": ms}), flush=True)
 
 
+def mlp32_part(src: str, rounds: int, batch: int, dev) -> None:
+    libs = build_variants(src, {"whole": None, **MLP32_VARIANTS}, "mlp32")
+    cells = {}
+    for cell, ((nd, nf), use_cfr, lane_block) in MLP32_CELLS.items():
+        game = LiarsDice(nd, nf)
+        net = CFVNet(game, 256, 2, True,
+                     generator=torch.Generator().manual_seed(5)).to(dev)
+        args = solve_args(game, random_states(game, batch, dev), use_cfr,
+                          net, torch.float32)
+        if lane_block is None:
+            lane_block = grid2p.choose_lane_block(*args[:2], net,
+                                                  torch.float32, batch)
+        cells[cell] = (args, lane_block)
+    for rnd in range(rounds):
+        for name, lib in libs.items():
+            with using(lib):
+                for cell, (args, lane_block) in cells.items():
+                    ms = time_launch(args, reps=2, lane_block=lane_block)
+                    print(json.dumps({"round": rnd, "part": "mlp32",
+                                      "variant": name, "cell": cell,
+                                      "lane_block": lane_block, "ms": ms}),
+                          flush=True)
+    # The yardstick: the MLP's products at one iteration's rows.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for cell, (args, _) in cells.items():
+        game, net = args[0], args[6]
+        rows = len(grid2p.pseudo_leaf_pairs(game)) * batch
+        g = torch.Generator(dev).manual_seed(7)
+        mats = [(torch.rand((rows, k), device=dev, generator=g),
+                 lin.weight.detach().T.contiguous())
+                for k, lin in zip([game.query_size] + [net.n_hidden]
+                                  * net.n_layers,
+                                  [lin for lin, _ in net.hidden_layers()]
+                                  + [net.output])]
+        for x, w in mats:
+            torch.matmul(x, w)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        reps = 20
+        start.record()
+        for _ in range(reps):
+            for x, w in mats:
+                torch.matmul(x, w)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / reps
+        print(json.dumps({"part": "mlp32", "yardstick": "torch.matmul f32",
+                          "cell": cell, "rows": rows,
+                          "shapes": [[*x.shape, w.shape[1]] for x, w in mats],
+                          "ms_per_iteration": ms,
+                          "ms_1024_iterations": ms * 1024}), flush=True)
+
+
 def body_part(src: str, rounds: int, batch: int, dev) -> None:
     variants = {"whole": None, **BODY_VARIANTS}
     libs = build_variants(src, variants, "body")
@@ -229,11 +292,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--batch", type=int, default=1024)
-    ap.add_argument("--parts", default="mlp,body")
+    ap.add_argument("--parts", default="mlp,mlp32,body")
     args = ap.parse_args(argv)
     parts = [x for x in args.parts.split(",") if x]
-    if any(x not in ("mlp", "body") for x in parts):
-        ap.error(f"--parts takes mlp and body, not {args.parts}")
+    if any(x not in ("mlp", "mlp32", "body") for x in parts):
+        ap.error(f"--parts takes mlp, mlp32 and body, not {args.parts}")
     if not torch.cuda.is_available():
         print("mlp_breakdown: CUDA is not available", file=sys.stderr)
         return 1
@@ -244,6 +307,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     if "mlp" in parts:
         mlp_part(src, args.rounds, args.batch, dev)
+    if "mlp32" in parts:
+        mlp32_part(src, args.rounds, args.batch, dev)
     if "body" in parts:
         body_part(src, args.rounds, args.batch, dev)
     return 0

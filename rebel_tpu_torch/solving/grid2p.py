@@ -66,6 +66,13 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 MMA_ROWS = 64
 WARPGROUPS = 2
 MAX_K0 = 64
+# The f32 MLP (FMA): query rows a warp owns, warps of a block, and the
+# ring a group of warps streams each hidden matrix through (stages of
+# RING_K of its rows).
+WARP_ROWS = 8
+WARPS = 8
+RING_K = 16
+RING_STAGES = 2
 
 
 class Grid2Outputs(NamedTuple):
@@ -301,21 +308,50 @@ def pack_mlp_weights(net: CFVNet) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def mlp32_words(game: LiarsDice, n_hidden: int) -> int:
+    """4-byte words the f32 MLP keeps in shared memory for the launch: the
+    first layer ``[Qpad, N]`` (the query size rounded up to 4; the hidden
+    layers stream through the ring, and the head and the f32 parameters
+    are read through the L1 cache)."""
+    return _ceil(game.query_size, 4) * n_hidden
+
+
+def pack_f32_rows(w: torch.Tensor) -> torch.Tensor:
+    """``w [K, 256]`` (f32, the product's ``[in, out]``) as the kernel's
+    f32 MLP reads it: in each row, column ``j + 32 (4 c + e)`` at ``128 c +
+    4 j + e``, so that thread ``j`` of a warp, which owns the columns ``j
+    + 32 i``, reads its 8 as two float4 and the warp reads neighbouring
+    words."""
+    k, n = w.shape
+    if n != 256:
+        raise ValueError(f"the f32 MLP packs rows of 256 columns, not {n}")
+    return w.reshape(k, 2, 4, 32).permute(0, 1, 3, 2).contiguous()
+
+
 def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
-                n_hidden: int, n_layers: int, bf16: bool, groups: int = 1,
-                mlp_chunks: int = 1) -> dict:
+                n_hidden: int, n_layers: int, bf16: bool,
+                groups: int = 1) -> dict:
     """Bytes of a block's shared memory by part, as the kernel's
     ``make_layout()`` lays it out (the wrapper holds the two equal on the
-    card): ``mlp`` (bf16 with a net: the packed MLP block and its
-    barrier), ``tables`` (pair tables and payoff), ``lanes`` (the solver
-    state of all lanes), ``staging`` (f32 with a net: the activations of a
-    group of pairs) and ``total``.  ``n_layers`` 0: no net."""
+    card): ``mlp`` (with a net: the weights kept for the launch and their
+    barrier; bf16 the packed MLP block, f32 :func:`mlp32_words`),
+    ``tables`` (pair tables and payoff), ``lanes`` (the solver state of
+    all lanes), ``rows`` (f32: each warp's :data:`WARP_ROWS` activation
+    rows), ``ring`` (f32 with hidden layers to stream: each group's
+    :data:`RING_STAGES` stages of :data:`RING_K` weight rows, their
+    barriers and counts) and ``total``.  ``n_layers`` 0: no net.
+    ``mlp_chunks`` does not change it."""
     A, H = game.num_actions, game.num_hands
     P = len(pseudo_leaf_pairs(game))
     words = lambda *ns: sum(_ceil(n, 4) for n in ns)
     net = n_layers > 0
     mma = net and bf16
-    mlp = words(mlp_block_bytes(game, n_hidden, n_layers) // 4, 2) if mma else 0
+    fma = net and not bf16
+    mlp = 0
+    if mma:
+        mlp = words(mlp_block_bytes(game, n_hidden, n_layers) // 4, 2)
+    elif fma:
+        mlp = words(mlp32_words(game, n_hidden), 2)
     tables = words(P, P, A * A, A * H * H)
     LB = lane_block // groups
     state = [LB, LB, LB, LB * A, LB * 2 * H, LB * H * H, LB * H * A,
@@ -325,33 +361,33 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
     if not use_cfr:  # the average policy
         state += [LB * H * A, LB * A * H * A]
     lanes = words(*state)
-    staging = 0
-    if net and not mma:
-        rows = _ceil(-(-P // mlp_chunks) * LB, 16 * (256 // groups) // 128)
-        qpad = _ceil(game.query_size, 4)
-        staging = words(rows * qpad, rows * n_hidden, rows * n_hidden)
+    rows = words(WARPS // groups * WARP_ROWS * n_hidden) if fma else 0
+    ring = (words(RING_STAGES * RING_K * n_hidden, 3 * RING_STAGES)
+            if fma and n_layers > 1 else 0)
     parts = dict(mlp=mlp, tables=tables, lanes=groups * lanes,
-                 staging=groups * staging)
+                 rows=groups * rows, ring=groups * ring)
     parts["total"] = sum(parts.values())
     return {k: 4 * v for k, v in parts.items()}
 
 
 def default_mlp_chunks(n_pairs: int, lane_block: int, groups: int,
                        mma: bool) -> int:
-    """``mlp_chunks`` when the caller gives none.  The tensor-core MLP
-    (``mma``, bf16 with a net) stages nothing, so only its row padding
-    counts: the fewest groups of pairs that take the fewest turns of the
-    block's warpgroups over 64-row tiles (1 at 1x4f for every lane block
-    up to 16).  The f32 MLP stages a group's activations: as many pairs at
-    a time as fill one row tile of ``dense()`` (32 rows a block)."""
-    if not mma:
-        return -(-n_pairs // max(1, 32 // lane_block))
-    lanes, wgs = lane_block // groups, WARPGROUPS // groups
+    """``mlp_chunks`` when the caller gives none.  Neither MLP stages a
+    group of pairs (the layout does not depend on it), so only the row
+    padding counts: the fewest groups of pairs that take the fewest turns
+    over the tiles of query rows.  A turn: the tensor-core MLP's (``mma``,
+    bf16 with a net) warpgroups each take a 64-row tile; the f32 MLP's
+    warps each take :data:`WARP_ROWS` rows.  1 at 1x4f for every lane
+    block up to 16, with either."""
+    lanes = lane_block // groups
+    if mma:
+        tile, tiles = MMA_ROWS, WARPGROUPS // groups
+    else:
+        tile, tiles = WARP_ROWS * WARPS // groups, 1
 
     def turns(chunks):
         per = -(-n_pairs // chunks)
-        tiles = -(-per * lanes // MMA_ROWS)
-        return -(-n_pairs // per) * -(-tiles // wgs)
+        return -(-n_pairs // per) * -(-(-(-per * lanes // tile)) // tiles)
 
     return min(range(1, n_pairs + 1), key=lambda c: (turns(c), c))
 
@@ -513,14 +549,12 @@ def kernel_plan(game: LiarsDice, params: SubgameSolvingParams,
         mlp_chunks = default_mlp_chunks(len(pseudo_leaf_pairs(game)),
                                         lane_block, groups, mma)
     need = smem_layout(game, lane_block, params.use_cfr, n_hidden, n_layers,
-                       bf16, groups, mlp_chunks)["total"]
+                       bf16, groups)["total"]
     if need > SMEM_LIMIT:
-        more = ("use a smaller lane_block or fewer hidden layers" if mma
-                else "use a smaller lane_block or more mlp_chunks")
+        more = " or fewer hidden layers" if mma else ""
         raise ValueError(
-            f"lane_block {lane_block} with mlp_chunks {mlp_chunks} needs "
-            f"{need} B of shared memory per block, more than {SMEM_LIMIT}; "
-            f"{more}")
+            f"lane_block {lane_block} needs {need} B of shared memory per "
+            f"block, more than {SMEM_LIMIT}; use a smaller lane_block{more}")
     return KernelPlan(act, groups, mlp_chunks, bf16, need)
 
 
@@ -616,16 +650,19 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     n_hidden = n_layers = 0
     if net is not None:
         n_hidden, n_layers = net.n_hidden, net.n_layers
-        # f32 weights for dense(); bf16 ones go in the packed block, which
-        # holds the biases and LayerNorm parameters too (the kernel reads
-        # ln_scale only for whether the layer has LayerNorm).
+        # f32: the hidden layers' weights [K, N] by pack_f32_rows (fresh,
+        # so 16-byte aligned for the kernel's bulk copies), the head's
+        # [N, H] row-major, the biases and LayerNorm parameters; bf16
+        # weights go in the packed block, which holds the biases and
+        # LayerNorm parameters too (the kernel reads ln_scale only for
+        # whether the layer has LayerNorm).
         for k, (lin, ln) in enumerate(net.hidden_layers()):
             w = None
             if not mma:
                 w = lin.weight.detach().T.to(device=dev, dtype=torch.float32)
                 if k == 0:  # pad the input rows to a multiple of 4
                     w = torch.cat([w, w.new_zeros(Qpad - Q, n_hidden)])
-                w = w.contiguous()
+                w = pack_f32_rows(w)
             keep += [w, f32(lin.bias.detach())]
             keep += ([f32(ln.weight.detach()), f32(ln.bias.detach())]
                      if ln is not None else [None, None])

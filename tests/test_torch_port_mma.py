@@ -9,9 +9,10 @@ reads its weights from the block as the kernel does equals the plain
 version in bf16 and, in f32 on unrounded weights, the JAX package's net;
 the shared-memory reckoning (``smem_layout``, which the wrapper holds
 equal to the kernel's on the card) gives the bytes the design states and
-the kernel's own figures for the f32 staging; and a layout that does not
-fit raises in ``kernel_plan``, which ``solve`` calls before it builds or
-launches anything.
+the kernel's own figures, bf16 and f32 (the FMA MLP's resident weights,
+its warps' rows and its ring); and a layout that does not fit raises in
+``kernel_plan``, which ``solve`` calls before it builds or launches
+anything.
 """
 
 import jax
@@ -122,6 +123,25 @@ def test_pack_layout_is_core_matrices():
     assert float(words[(0 * 4 + 3) * 64 + 2 * 8 + 7]) == 0.0  # k = 31: pad
 
 
+@pytest.mark.parametrize("rows", [20, 36, 256])
+def test_pack_f32_rows_round_trip(rows):
+    """The f32 MLP's weights as the kernel reads them: in every row,
+    thread j's two float4 (words 4 j .. 4 j + 3 and 128 + 4 j ..) are its
+    columns j + 32 i, i = 0 .. 7 in order; unpacking gives back every
+    weight bit for bit."""
+    w = torch.randn((rows, 256), generator=torch.Generator().manual_seed(9))
+    packed = grid2p.pack_f32_rows(w)
+    assert packed.shape == (rows, 2, 32, 4) and packed.is_contiguous()
+    flat = packed.reshape(rows, 256)
+    for j in (0, 5, 31):
+        got = torch.cat([flat[:, 4 * j:4 * j + 4],
+                         flat[:, 128 + 4 * j:128 + 4 * j + 4]], dim=1)
+        assert torch.equal(got, w[:, j::32])
+    assert torch.equal(packed.permute(0, 1, 3, 2).reshape(rows, 256), w)
+    with pytest.raises(ValueError, match="256"):
+        grid2p.pack_f32_rows(w[:, :128])
+
+
 def _mlp_from_block(block, game, n_hidden, n_layers, use_ln, act):
     """The net as the kernel reads it from the block: weights [N, K] from
     the core matrices, products in f32 on bf16 operands, then the bias,
@@ -204,7 +224,7 @@ def test_smem_reckoning_at_the_default_lane_block():
                                      (False, 6416, 210208)):
         got = grid2p.smem_layout(GAME, 8, use_cfr, 256, 2, True)
         assert got == dict(mlp=151552 + 6176 + 16, tables=1136,
-                           lanes=8 * per_lane, staging=0, total=total)
+                           lanes=8 * per_lane, rows=0, ring=0, total=total)
         assert total <= grid2p.SMEM_LIMIT
     # grid2_cfr_il2: the same bytes, the lanes in two groups.
     assert grid2p.smem_layout(GAME, 8, True, 256, 2, True, groups=2) == \
@@ -212,20 +232,54 @@ def test_smem_reckoning_at_the_default_lane_block():
 
 
 @pytest.mark.parametrize(
-    "lane_block,use_cfr,mlp_chunks,bf16,total",
-    # The kernel's own figures for the f32 staging at lane block 8 and FP
-    # at 16 (its grid2_cfr_smem_bytes on the card, PERF.md).
-    [(8, True, 1, False, 517616), (8, True, 2, False, 313328),
-     (8, True, 3, False, 245232), (16, False, 7, False, 239984),
-     (8, True, 7, False, 109040), (12, True, 1, True, 218592),
-     (12, False, 1, True, 235872), (16, True, 1, True, 238496)])
-def test_smem_reckoning_matches_the_kernel(lane_block, use_cfr, mlp_chunks,
-                                           bf16, total):
-    got = grid2p.smem_layout(GAME, lane_block, use_cfr, 256, 2, bf16,
-                             mlp_chunks=mlp_chunks)
+    "game,lane_block,use_cfr,bf16,groups,total",
+    # The kernel's own figures (its grid2_cfr_smem_bytes on the card,
+    # PERF.md): f32 at every game of eval_all's defaults at the chosen lane
+    # block, CFR and FP, at 1x4f with two groups and at lane blocks 16 and
+    # 24, and bf16 at lane blocks 12 and 16.
+    [((1, 4), 8, True, False, 1, 159776), ((1, 4), 8, False, False, 1, 171296),
+     ((1, 4), 8, True, False, 2, 192576), ((1, 4), 16, False, False, 1, 222624),
+     ((1, 4), 24, False, False, 1, 273952),
+     ((1, 5), 8, True, False, 1, 197680), ((1, 5), 8, False, False, 1, 218800),
+     ((1, 6), 4, True, False, 1, 190288), ((1, 6), 4, False, False, 1, 207760),
+     ((2, 3), 4, True, False, 1, 230688), ((2, 3), 2, False, False, 1, 198912),
+     ((1, 4), 12, True, True, 1, 218592), ((1, 4), 12, False, True, 1, 235872),
+     ((1, 4), 16, True, True, 1, 238496)])
+def test_smem_reckoning_matches_the_kernel(game, lane_block, use_cfr, bf16,
+                                           groups, total):
+    got = grid2p.smem_layout(LiarsDice(*game), lane_block, use_cfr, 256, 2,
+                             bf16, groups)
     assert got["total"] == total
     assert got["total"] == sum(v for k, v in got.items() if k != "total")
-    assert (got["staging"] == 0) == bf16
+    assert (got["rows"] == 0) == bf16 and (got["ring"] == 0) == bf16
+
+
+@pytest.mark.parametrize("use_cfr", [True, False])
+@pytest.mark.parametrize("dice,faces", [(1, 4), (1, 5), (1, 6), (2, 3)])
+def test_f32_layout_by_game(dice, faces, use_cfr):
+    """The f32 MLP's shared memory as its design states it, at the lane
+    block chosen for a 256x2 net: the first layer (the query rounded up to
+    4 rows of 1 KB) resident with its 16-byte barrier; 8 warps x 8 rows of
+    1 KB; a ring of 2 stages of 16 KB with their barriers and counts (32
+    B), through which the hidden layers stream; the same state a lane as
+    with bf16 operands.  One group of pairs is the default (the fewest
+    turns of the block's warps), and a third hidden layer adds nothing:
+    it streams through the same ring (the head and the f32 parameters are
+    read through the L1 cache)."""
+    game = LiarsDice(dice, faces)
+    net = _net(game)
+    lb = grid2p.choose_lane_block(game, _params(use_cfr), net,
+                                  torch.float32, 1024)
+    got = grid2p.smem_layout(game, lb, use_cfr, 256, 2, False)
+    assert got["mlp"] == -(-game.query_size // 4) * 4 * 1024 + 16
+    assert got["rows"] == 8 * 8 * 1024
+    assert got["ring"] == 2 * 16 * 1024 + 32
+    assert got["lanes"] == grid2p.smem_layout(game, lb, use_cfr, 256, 2,
+                                              True)["lanes"]
+    assert got["total"] <= grid2p.SMEM_LIMIT
+    P = len(grid2p.pseudo_leaf_pairs(game))
+    assert grid2p.default_mlp_chunks(P, lb, 1, False) == 1
+    assert grid2p.smem_layout(game, lb, use_cfr, 256, 3, False) == got
 
 
 @pytest.mark.parametrize(
@@ -234,7 +288,8 @@ def test_smem_reckoning_matches_the_kernel(lane_block, use_cfr, mlp_chunks,
      (dict(dtype=torch.bfloat16, use_cfr=False, lane_block=12),
       "shared memory"),
      (dict(dtype=torch.bfloat16, lane_block=16), "shared memory"),
-     (dict(dtype=torch.float32, mlp_chunks=3), "more mlp_chunks"),
+     (dict(dtype=torch.float32, use_cfr=False, lane_block=24),
+      "shared memory"),
      (dict(dtype=torch.float16), "float32 or bfloat16"),
      (dict(dtype=torch.bfloat16, n_hidden=128), "width")])
 def test_plan_raises_before_any_launch(kw, match):
@@ -269,33 +324,36 @@ def test_plan_at_the_main_path(use_cfr, interleave, groups, smem):
 
 @pytest.mark.parametrize("lane_block", [1, 2, 4, 8, 12, 16])
 def test_default_mlp_chunks(lane_block):
-    """bf16 stages nothing, so the default is the grouping with the fewest
-    turns of the warpgroups over 64-row tiles: at 1x4f one group for every
-    lane block.  f32 keeps its default: as many pairs as fill dense()'s
-    32-row tile (7 groups at lane block 8)."""
+    """Neither MLP stages a group of pairs, so the default is the grouping
+    with the fewest turns over the tiles of query rows (bf16: the
+    warpgroups' 64-row tiles; f32: 8 rows for each of the block's warps):
+    at 1x4f one group for every lane block."""
     P = len(grid2p.pseudo_leaf_pairs(GAME))
-    assert grid2p.default_mlp_chunks(P, lane_block, 1, True) == 1
-    if lane_block % 2 == 0:
-        assert grid2p.default_mlp_chunks(P, lane_block, 2, True) == 1
-    assert grid2p.default_mlp_chunks(P, lane_block, 1, False) == \
-        -(-P // max(1, 32 // lane_block))
-    assert grid2p.default_mlp_chunks(P, 8, 1, False) == 7
+    for mma in (True, False):
+        assert grid2p.default_mlp_chunks(P, lane_block, 1, mma) == 1
+        if lane_block % 2 == 0:
+            assert grid2p.default_mlp_chunks(P, lane_block, 2, mma) == 1
 
 
+@pytest.mark.parametrize("mma", [True, False])
 @pytest.mark.parametrize("n_pairs,lanes,warpgroups",
                          [(28, 8, 2), (28, 4, 1), (10, 13, 2), (66, 3, 1),
                           (6, 22, 2), (36, 5, 2)])
-def test_default_mlp_chunks_minimises_turns(n_pairs, lanes, warpgroups):
-    """bf16: the default is the smallest number of groups of pairs whose
-    64-row tiles take the fewest turns of the warpgroups (a pass's tiles
-    are dealt to them in turn)."""
+def test_default_mlp_chunks_minimises_turns(n_pairs, lanes, warpgroups, mma):
+    """The default is the smallest number of groups of pairs whose tiles
+    take the fewest turns (a pass's tiles are dealt in turn): bf16's
+    64-row tiles to the group's warpgroups, f32's tiles of 8 rows for
+    each of the group's warps (64 rows a block, 32 a group of two) one a
+    turn."""
+    groups = 2 // warpgroups
+    tile, tiles = (64, warpgroups) if mma else (64 // groups, 1)
+
     def turns(chunks):
         per = -(-n_pairs // chunks)
         passes = -(-n_pairs // per)
-        return passes * -(-(-(-per * lanes // 64)) // warpgroups)
+        return passes * -(-(-(-per * lanes // tile)) // tiles)
 
-    groups = 2 // warpgroups
-    got = grid2p.default_mlp_chunks(n_pairs, lanes * groups, groups, True)
+    got = grid2p.default_mlp_chunks(n_pairs, lanes * groups, groups, mma)
     best = min(turns(c) for c in range(1, n_pairs + 1))
     assert turns(got) == best
     assert all(turns(c) > best for c in range(1, got))
@@ -312,11 +370,12 @@ def test_source_edits_of_the_chip_scripts_apply():
     from rebel_tpu_torch.kernels import build
 
     src = (build.KERNEL_DIR / "grid2_cfr.cu").read_text()
-    variants = {**mlp_breakdown.VARIANTS, **mlp_breakdown.BODY_VARIANTS}
-    for name, edits in variants.items():
-        assert name == "whole" or edits, name
-        for old, new in edits or ():
-            assert src.count(old) == 1 and old != new, name
+    for variants in (mlp_breakdown.VARIANTS, mlp_breakdown.MLP32_VARIANTS,
+                     mlp_breakdown.BODY_VARIANTS):
+        for name, edits in variants.items():
+            assert name == "whole" or edits, name
+            for old, new in edits or ():
+                assert src.count(old) == 1 and old != new, name
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_mutants.py"
     spec = importlib.util.spec_from_file_location("chip_mutants", path)
     mutants = importlib.util.module_from_spec(spec)
@@ -336,7 +395,7 @@ def test_breakdown_needs_the_card():
 # The largest lane block of grid2p.LANE_BLOCKS that fits a 256x2 net, by
 # game: bf16 CFR, bf16 FP, f32 CFR, f32 FP.
 CHOSEN_LANE_BLOCK = {(1, 4): (8, 8, 8, 8), (1, 5): (4, 4, 8, 8),
-                     (1, 6): (4, 2, 8, 8), (2, 3): (2, 1, 4, 4)}
+                     (1, 6): (4, 2, 4, 4), (2, 3): (2, 1, 4, 2)}
 
 
 @pytest.mark.parametrize("batch", [1024, 2048, 256])
