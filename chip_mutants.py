@@ -143,6 +143,13 @@ MUTANTS = {
         "        const float b = __ldg(bias + lane + 32 * i);",
         "        const float b = __ldg(bias + (lane + 1 + 32 * i) % NH);",
         CHECK_PHASES),
+    # The same shift in LayerNorm's scale (the checks' nets draw it from a
+    # seed).
+    "epilogue-ln-scale-shift": (
+        "            const float g = __ldg(scale + j), b = __ldg(lbias + j);",
+        "            const float g = __ldg(scale + (j + 1) % NH), "
+        "b = __ldg(lbias + j);",
+        CHECK_PHASES),
 }
 
 

@@ -15,10 +15,11 @@ an H100, ``sm_90a``).  It
    instructions (``HGMMA``, ``HMMA``) in its machine code: ``HGMMA`` in
    every bf16 instantiation, neither in an f32 one;
 2. ``cfr-checks``: holds ``grid2_cfr`` against its plain PyTorch version
-   (``solving.grid2p.solve_reference``) on the card at 1x4f, B=256: f32
-   with LayerNorm, f32 without LayerNorm, no net, bf16 with the fast GELU,
-   DCFR (plain and clamped), CFR without discounts, and 1 and 3 hidden
-   layers; over 4 iterations to an absolute limit and over 64 iterations
+   (``solving.grid2p.solve_reference``) on the card at 1x4f, B=256, with
+   fresh nets whose LayerNorm scale and bias are drawn from a seed too:
+   f32 with LayerNorm, f32 without LayerNorm, no net, bf16 with the fast
+   GELU, DCFR (plain and clamped), CFR without discounts, and 1 and 3
+   hidden layers; over 4 iterations to an absolute limit and over 64 iterations
    (1024 without a net) by statistics limited by a
    plain(card)-vs-plain(cpu) control;
 3. ``fp-checks``: the same for ``grid2_fp``: plain, linear and optimistic
@@ -92,14 +93,31 @@ an H100, ``sm_90a``).  It
    evaluation of each 1x4f net against the kernel with an f32 MLP, with
    phase 7's limits (CFR over 16 subgame iterations, FP over 1024), and
    ``bench --layout batch_first`` for 2 steps;
-16. prints the whole run's seconds, one ``{"kernels": [...]}`` line with
+16. ``spmd``: the SPMD path (``Trainer.run_spmd``,
+   ``rebel_tpu_torch.parallel``) with the round-5 overrides at full width:
+   (a) at world size 1 over NCCL in this process, two epochs and a
+   resume to a third, whose net, optimizer, ring, episodes and generator
+   are held to a straight run of three with ``torch.equal``, with the
+   epochs' seconds by part; (b) two ranks sharing the card over gloo
+   through the run entry (``launcher.num_processes=2 launcher.spmd=true
+   max_epochs=2 exploit_every=1``): its files, rank 0's exploitability,
+   every rank's net equal after each epoch and ``grid2_cfr`` launched on
+   every rank; (c) the SPMD train step on two gloo ranks: the averaged
+   gradient against one process's on both batches, the nets equal across
+   the ranks; (d) the ``fast`` engine with the hands split over two gloo
+   ranks (1x4f, f64) against the unsplit engine;
+17. prints the whole run's seconds, one ``{"kernels": [...]}`` line with
    the three kernels and ``{"ok": true, "device": {...}}`` as the last
    line.
 
 The launch counts of the kernels are set to 0 just before each of the
-paths (4, 6 for each net, 8, 10, each run of 11, 14) and read just after;
-a kernel that a path should run and did not fails the run.  In 11,
+paths (4, 6 for each net, 8, 10, each run of 11, 14, 16a) and read just
+after; a kernel that a path should run and did not fails the run.  In 11,
 ``grid2_cfr`` must run in generation (bf16) and in the evaluation (f32).
+In 16b each rank counts its own launches, which the run entry writes
+into ``result.json`` (``kernel_launches``, one entry a rank); a rank that
+launched ``grid2_cfr`` no time fails the run, and the ranks' counts join
+the kernels line's.
 
 ``--phases a,b`` runs only the named phases (and the build); such a run
 prints no result line.
@@ -273,7 +291,7 @@ INSTANTIATIONS = 6
 
 PHASES = ("cfr-checks", "fp-checks", "cfr-selfplay", "cfr-shapes", "eval",
           "exploit-check", "fp-selfplay", "knob-checks", "bench", "run-entry",
-          "games", "games-exploit", "run-entry-2x3", "fast-check")
+          "games", "games-exploit", "run-entry-2x3", "fast-check", "spmd")
 
 # The larger games (phases 12-14): the repo's trained 256x2 net of each
 # game and solver.  Their checks run at GAME_LANES lanes, the controls of
@@ -332,10 +350,32 @@ RUN_ENTRY_2X3_ARGS = ["selfplay.engine=pallas",
 
 # The run entry (phase 11): conf/liars_sp.yaml with the round-5 overrides
 # (scripts/round5_run.sh), cut to two epochs and a resumed third.
-RUN_ENTRY_ARGS = ["selfplay.engine=pallas", "selfplay.net_compute_dtype=bf16",
-                  "env.subgame_params.use_cfr=true", "checkpoint_every=1",
-                  "exploit_every=2", "eval_num_repeats=8",
-                  "stall_timeout_s=600"]
+ROUND5 = ["selfplay.engine=pallas", "selfplay.net_compute_dtype=bf16",
+          "env.subgame_params.use_cfr=true"]
+RUN_ENTRY_ARGS = ROUND5 + ["checkpoint_every=1", "exploit_every=2",
+                           "eval_num_repeats=8", "stall_timeout_s=600"]
+
+# The SPMD path (phase 16), conf/liars_sp.yaml with the round-5
+# overrides at full width.  (a) Trainer.run_spmd in this process at world
+# size 1 over NCCL, without exploit evaluations: two epochs, a resume to a
+# third, and a straight run of three.  (b) Two ranks sharing the card over
+# gloo through the run entry, an exploit evaluation on rank 0 at both
+# epochs.  (c) The SPMD train step on two gloo ranks over fixed rings of
+# SPMD_RING_ROWS rows with given sample slots, SPMD_STEPS steps: the
+# averaged gradient against one process's on both batches put together
+# (f32; the sums run in another order), the nets equal across the ranks.
+# (d) The fast engine in f64 at 1x4f over SPMD_HANDS_ITERS subgame
+# iterations with the hands split over two gloo ranks, against the
+# unsplit engine at the JAX package's tolerance
+# (tests/test_hands_sharding.py).
+SPMD_ARGS = ROUND5 + ["exploit=false", "checkpoint_every=1"]
+SPMD_RUN_ARGS = ROUND5 + ["launcher.num_processes=2", "launcher.spmd=true",
+                          "max_epochs=2", "exploit_every=1",
+                          "stall_timeout_s=600"]
+SPMD_TIMEOUT = 600  # seconds a group of ranks may take
+SPMD_RING_ROWS, SPMD_STEPS, SPMD_GRAD_RTOL = 4096, 3, 1e-6
+SPMD_HANDS_LANES, SPMD_HANDS_ITERS, SPMD_HANDS_ATOL = 1024, 16, 1e-12
+
 # Metric names of the JAX package's epoch (tests/test_trainer.py:47-57 and
 # its epoch loop), and those of an exploit epoch.
 EPOCH_METRICS = ("epoch", "loss/train", "optim/lr", "optim/grad_max",
@@ -659,11 +699,22 @@ def main() -> int:
         return SubgameSolvingParams(num_iters=num_iters, max_depth=2,
                                     use_cfr=False, **kw)
 
-    def fresh_net(layers, use_ln, seed):
+    def fresh_net(layers, use_ln, seed, seeded_ln=False):
+        """A 256-wide net of ``layers`` hidden layers from ``seed``, on the
+        CPU and on the card.  ``seeded_ln``: LayerNorm's scale and bias
+        drawn from the seed too, U(0.5, 1.5) and U(-0.5, 0.5) per column,
+        not 1 and 0, so that a kernel that reads them off by a column
+        shows."""
         if not layers:
             return None, None
-        net = CFVNet(game, 256, layers, use_ln,
-                     generator=torch.Generator().manual_seed(seed))
+        g = torch.Generator().manual_seed(seed)
+        net = CFVNet(game, 256, layers, use_ln, generator=g)
+        if seeded_ln:
+            with torch.no_grad():
+                for _, ln in net.hidden_layers():
+                    if ln is not None:
+                        ln.weight.copy_(0.5 + torch.rand(256, generator=g))
+                        ln.bias.copy_(torch.rand(256, generator=g) - 0.5)
         return net, copy.deepcopy(net).to(dev)
 
     # ------------------------------------ 2. grid2_cfr vs plain version
@@ -686,7 +737,7 @@ def main() -> int:
             ("f32_3layers", {}, 3, True, torch.float32),
         ]
         for k, (name, kw, layers, use_ln, dtype) in enumerate(modes):
-            net, net_dev = fresh_net(layers, use_ln, 10 + k)
+            net, net_dev = fresh_net(layers, use_ln, 10 + k, seeded_ln=True)
             tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
             for iters in ((CHECK_ITERS, LONG_ITERS)
                           + ((NONET_ITERS,) if net is None else ())):
@@ -723,7 +774,7 @@ def main() -> int:
             ("linear_nonet_pointmass", {}, 0, torch.float32),
         ]
         for k, (name, kw, layers, dtype) in enumerate(modes):
-            net, net_dev = fresh_net(layers, True, 40 + k)
+            net, net_dev = fresh_net(layers, True, 40 + k, seeded_ln=True)
             tol = TOL_FP_BF16 if dtype == torch.bfloat16 else TOL_FP_F32
             for iters in (CHECK_ITERS, LONG_ITERS):
                 inputs = random_inputs(256, iters, 50 + k)
@@ -1723,6 +1774,197 @@ def main() -> int:
     if "fast-check" in phases:
         fast_check()
         lap("fast-check")
+
+    # ---------------------------------------------------- 16. the SPMD path
+    def spmd_world1(tmp: pathlib.Path) -> None:
+        """(a) run_spmd at world size 1 over NCCL: two epochs, then a
+        resume to a third, against a straight run of three."""
+        import torch.distributed as dist
+
+        from rebel_tpu_torch import config as cfglib
+        from rebel_tpu_torch.parallel.launcher import _free_port
+
+        cfg = cfglib.apply_overrides(
+            cfglib.load_yaml_config(ROOT / "conf" / "liars_sp.yaml"),
+            SPMD_ARGS)
+        cfg.pop("launcher", None)
+        tcfg = cfglib.cfg_to_trainer_config(cfg)
+        dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                                f"{_free_port()}", world_size=1, rank=0)
+        try:
+            reset_counts()
+            runs = {}
+            for name, out, epochs in (("first", "a", 2), ("resumed", "a", 3),
+                                      ("straight", "b", 3)):
+                t0 = time.perf_counter()
+                tr = Trainer(tcfg, device=dev, out_dir=tmp / out)
+                state, metrics = tr.run_spmd(max_epochs=epochs)
+                torch.cuda.synchronize()
+                print(f"spmd world 1 ({dist.get_backend()}) {name}: "
+                      f"{time.perf_counter() - t0:.2f} s wall to epoch "
+                      f"{epochs}, burn-in {tr.burn_in_s:.3f} s; "
+                      + "; ".join(
+                          f"epoch {m['epoch']}: generation "
+                          f"{m['timing/gen']:.3f} s, training "
+                          f"{m['timing/train']:.3f} s, checkpoint "
+                          f"{m['timing/checkpoint']:.3f} s "
+                          f"({m['checkpoint/bytes']} B), loss "
+                          f"{m['loss/train']:.6f}" for m in metrics))
+                runs[name] = (tr, state, metrics)
+            read_counts("spmd world 1", "grid2_cfr")
+        finally:
+            dist.destroy_process_group()
+        (a, sa, _), (b, sb, _) = runs["resumed"], runs["straight"]
+        diffs = training_state_diffs(a, b)
+        for k, x in sa.episodes._asdict().items():
+            diffs[f"episodes.{k}"] = float(not torch.equal(
+                x, getattr(sb.episodes, k)))
+        diffs["generator"] = float(not torch.equal(sa.gen.get_state(),
+                                                   sb.gen.get_state()))
+        differ = {k: v for k, v in diffs.items() if v != 0.0}
+        print(f"check spmd world 1: resumed epoch 2 against a straight run "
+              f"of 3 epochs: {len(diffs) - len(differ)} of {len(diffs)} "
+              "parts (net, optimizer, ring, episodes, generator) "
+              f"bit-identical{'' if not differ else ', differing: '}"
+              f"{differ or ''} {'ok' if not differ else 'MISS'}")
+        if differ:
+            failures.append(f"spmd world 1: the resumed state differs from "
+                            f"a straight run's: {sorted(differ)}")
+
+    def spmd_two_ranks(tmp: pathlib.Path) -> None:
+        """(b) Two ranks on the one card through the run entry."""
+        exp = tmp / "two"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rebel_tpu_torch.run", "--cfg",
+             str(ROOT / "conf" / "liars_sp.yaml"), "--exp_dir", str(exp),
+             *SPMD_RUN_ARGS], cwd=ROOT, capture_output=True, text=True,
+            timeout=SPMD_TIMEOUT)
+        wall = time.perf_counter() - t0
+        bad = []
+        if proc.returncode != 0:
+            bad.append(f"rc {proc.returncode}: "
+                       f"{(proc.stdout + proc.stderr)[-3000:]}")
+        result = (json.loads((exp / "result.json").read_text())
+                  if (exp / "result.json").exists() else {})
+        if result.get("processes") != 2 or result.get("backend") != "gloo":
+            bad.append("result.json " + str({
+                k: result.get(k) for k in ("processes", "devices",
+                                           "backend")}))
+        if not (exp / "log.rank1.txt").exists() \
+                or (exp / "jobs.json").exists():
+            bad.append("log.rank1.txt missing or jobs.json left")
+        lines = ([json.loads(x) for x in
+                  (exp / "metrics.jsonl").read_text().splitlines()]
+                 if (exp / "metrics.jsonl").exists() else [])
+        for m in lines:
+            ckpt = (f"{m['timing/checkpoint']:.3f} s" if "timing/checkpoint"
+                    in m else "none")
+            print(f"  spmd two ranks epoch {m['epoch']}: generation "
+                  f"{m['timing/gen']:.3f} s, training {m['timing/train']:.3f}"
+                  f" s, exploit evaluation {m.get('timing/exploit', 0):.2f} s"
+                  f" (recursion {m.get('timing/exploit_recursion', 0):.2f} s"
+                  f"), checkpoint {ckpt}, exploitability last "
+                  f"{m.get('exploitability_last')} avg "
+                  f"{m.get('exploitability_avg')}, loss "
+                  f"{m.get('loss/train')}")
+        if not lines or not all(0 <= lines[0].get(k, math.nan) <= 2 for k in
+                                ("exploitability_last",
+                                 "exploitability_avg")):
+            bad.append("no exploitability in [0, 2] at epoch 0")
+        # run_spmd holds every rank's net to rank 0's after each epoch
+        # and raises on a difference, before rank 0 writes the epoch's
+        # metrics: rc 0 with epochs 0 and 1 written means equal nets.
+        epochs = [m["epoch"] for m in lines]
+        print(f"  nets equal on both ranks after epochs {epochs}: "
+              f"{proc.returncode == 0 and epochs == [0, 1]}")
+        if epochs != [0, 1]:
+            bad.append(f"epochs {epochs}")
+        per_rank = result.get("kernel_launches", [])
+        for rank in (0, 1):
+            n = (per_rank[rank].get("grid2_cfr", 0)
+                 if rank < len(per_rank) else 0)
+            print(f"  rank {rank}: grid2_cfr launches {n}")
+            launches["grid2_cfr"] += n
+            if n == 0:
+                bad.append(f"rank {rank}: no grid2_cfr launch")
+        print(f"check spmd two ranks on one card (run entry, "
+              f"{result.get('backend')}): {wall:.1f} s wall, "
+              f"{'ok' if not bad else 'MISS: ' + '; '.join(bad)}")
+        if bad:
+            failures.append(f"spmd two ranks: {bad}")
+
+    def spmd_parity(tmp: pathlib.Path) -> None:
+        """(c) the train step and (d) the hands axis, on two gloo ranks
+        sharing the card."""
+        import spmd_parity as parity
+
+        from rebel_tpu_torch.selfplay.fast_runner import FastSelfPlayEngine
+
+        g = torch.Generator().manual_seed(41)
+        net = CFVNet(game, 256, 2, True, generator=g)
+        local = 512 // 2
+        rings = [{"queries": torch.rand(SPMD_RING_ROWS, game.query_size,
+                                        generator=g),
+                  "values": torch.randn(SPMD_RING_ROWS, game.num_hands,
+                                        generator=g) * 0.5,
+                  "priorities": torch.ones(SPMD_RING_ROWS),
+                  "head": 0, "size": SPMD_RING_ROWS,
+                  "num_add": SPMD_RING_ROWS} for _ in range(2)]
+        env = dict(num_dice=1, num_faces=4, num_iters=SPMD_HANDS_ITERS,
+                   use_cfr=True)
+        cases = {
+            "train_step": {
+                "trainer": dict(env=env, selfplay_batch=1024,
+                                train_batch_size=512, replay_capacity=8192),
+                "net": net.state_dict(), "rings": rings,
+                "indices": torch.randint(0, SPMD_RING_ROWS,
+                                         (SPMD_STEPS, 2, local),
+                                         generator=g)},
+            "hands": {"env": env, "dtype": "float64", "hands": 2,
+                      "net": net.state_dict(), "lanes": SPMD_HANDS_LANES,
+                      "steps": 2, "seed": 43}}
+        t0 = time.perf_counter()
+        outs = parity.run_group(cases, 2, tmp / "parity", device="cuda",
+                                timeout=SPMD_TIMEOUT)
+        wall = time.perf_counter() - t0
+        ts = [o["train_step"] for o in outs]
+        rel = max(o["grad_rel"] for o in ts)
+        same = all(torch.equal(ts[1]["nets"][s][k], ts[0]["nets"][s][k])
+                   for s in range(SPMD_STEPS) for k in ts[0]["nets"][s])
+        ok = rel <= SPMD_GRAD_RTOL and same
+        print(f"check spmd train step (2 gloo ranks on the card, local batch "
+              f"{local}, f32): averaged gradient against one process's on "
+              f"both batches: relative max diff {rel:.3e} (limit "
+              f"{SPMD_GRAD_RTOL:.0e}); nets equal across ranks after "
+              f"{SPMD_STEPS} steps: {same} {'ok' if ok else 'MISS'}")
+        if not ok:
+            failures.append("spmd train step parity")
+        cfg = parity.recursive_params(env)
+        ref = parity.engine_steps(
+            FastSelfPlayEngine(cfg, torch.float64),
+            copy.deepcopy(net).to(dev, torch.float64), SPMD_HANDS_LANES, 2,
+            43, dev, torch.float64)
+        worst = max(float((o["hands"]["engine"][s][k].double()
+                           - ref[s][k].double()).abs().max())
+                    for o in outs for s in range(2) for k in ref[s])
+        ok = worst <= SPMD_HANDS_ATOL
+        print(f"check spmd hands (2 gloo ranks on the card, 1x4f, H=4, "
+              f"{SPMD_HANDS_LANES} lanes, {SPMD_HANDS_ITERS} iterations, "
+              f"f64, 2 steps): split against unsplit fast engine max abs "
+              f"diff {worst:.3e} (limit {SPMD_HANDS_ATOL:.0e}) "
+              f"{'ok' if ok else 'MISS'}; {wall:.1f} s wall for both")
+        if not ok:
+            failures.append("spmd hands parity")
+
+    if "spmd" in phases:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            spmd_world1(pathlib.Path(tmp))
+            spmd_two_ranks(pathlib.Path(tmp))
+            spmd_parity(pathlib.Path(tmp))
+        lap("spmd")
 
     print(f"phase host seconds: {phase_s}")
     print(f"whole run: {time.perf_counter() - start:.1f} s, the build "

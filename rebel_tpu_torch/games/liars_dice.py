@@ -79,6 +79,17 @@ class LiarsDice:
     def is_terminal(self, last_bid: int) -> bool:
         return last_bid == self.liar_call
 
+    def action_to_string(self, action: int) -> str:
+        if action == INITIAL_ACTION:
+            return "(initial)"
+        if action == self.liar_call:
+            return "liar"
+        q, f = self.unpack_action(action)
+        return f"bid(quantity={q},face={f})"
+
+    def state_to_string(self, last_bid: int, player_id: int) -> str:
+        return f"(pid={player_id},last={self.action_to_string(last_bid)})"
+
     def hand_to_dice(self, hand: int) -> list[int]:
         dice = []
         h = hand

@@ -7,10 +7,15 @@ Layout correspondence (flax kernels are ``[in, out]``, torch weights
     ``body.{4k+0}`` Linear     <-> ``Dense_k`` (kernel = weight.T)
     ``body.{4k+1}`` LayerNorm  <-> ``LayerNorm_k`` (scale = weight)
     ``output``      Linear     <-> ``Dense_{n_layers}``
+
+:func:`export_torchscript` writes a net as a TorchScript ``Net2``
+archive, the reference's interchange format, which ``torch.jit.load``
+reads without this package.
 """
 
 from __future__ import annotations
 
+import copy
 import pickle
 
 import numpy as np
@@ -118,3 +123,25 @@ def load_params_net(path, game: LiarsDice, device="cuda") -> CFVNet:
     arrays."""
     sd = from_flax(load_flax_params(path))
     return net_from_state_dict(sd, game).to(device)
+
+
+class _Net2(torch.nn.Module):
+    """The reference ``Net2``: ``output(body(packed_input))``."""
+
+    def __init__(self, body: torch.nn.Module, output: torch.nn.Module):
+        super().__init__()
+        self.body = body
+        self.output = output
+
+    def forward(self, packed_input: torch.Tensor) -> torch.Tensor:
+        return self.output(self.body(packed_input))
+
+
+def export_torchscript(net: CFVNet, path) -> str:
+    """Write ``net`` (in f32, on the CPU) as a TorchScript ``Net2`` archive
+    at ``path``, the format the reference's evaluation binaries load;
+    returns ``path``."""
+    m = _Net2(copy.deepcopy(net.body), copy.deepcopy(net.output))
+    m = m.to("cpu", torch.float32).eval()
+    torch.jit.save(torch.jit.script(m), str(path))
+    return str(path)

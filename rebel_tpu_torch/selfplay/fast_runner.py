@@ -38,6 +38,7 @@ import torch
 
 from rebel_tpu_torch.games.liars_dice import INITIAL_ACTION
 from rebel_tpu_torch.nets.value_nets import net_value_fn
+from rebel_tpu_torch.parallel.distributed import Axis
 from rebel_tpu_torch.solving import grid2p
 from rebel_tpu_torch.solving.core import (
     RootCtx,
@@ -46,7 +47,7 @@ from rebel_tpu_torch.solving.core import (
     root_action_mask,
     root_query,
 )
-from rebel_tpu_torch.solving.grid2 import Grid2Solver
+from rebel_tpu_torch.solving.grid2 import Grid2Solver, local_hands
 from rebel_tpu_torch.selfplay.runner import (
     EpisodeState,
     RecursiveSolvingParams,
@@ -235,10 +236,18 @@ class FastSelfPlayEngine:
     :class:`~rebel_tpu_torch.nets.cfv_net.CFVNet` (run by
     :func:`~rebel_tpu_torch.nets.value_nets.net_value_fn`, in its own
     dtype on queries in the solver's) or any value function; the solve
-    runs in ``dtype``."""
+    runs in ``dtype``.
+
+    With ``hands`` (an :class:`~rebel_tpu_torch.parallel.distributed.Axis`
+    of ranks) the solve runs on this rank's slice of the hands, with the
+    solver's sums over the axis every iteration, and the policies and
+    root values are gathered once a subgame, so the walk and the examples
+    see every hand.  The episodes and the generator are the same on every
+    rank of the axis, so every rank draws the same numbers."""
 
     cfg: RecursiveSolvingParams
     dtype: torch.dtype = torch.float32
+    hands: Axis | None = None
 
     def __post_init__(self):
         _depth2_only(self.cfg, "FastSelfPlayEngine")
@@ -252,12 +261,17 @@ class FastSelfPlayEngine:
         solver = Grid2Solver(
             game=game, params=sub, dtype=self.dtype,
             value_fn=(net_value_fn(net) if isinstance(net, torch.nn.Module)
-                      else net), device=dev)
+                      else net), device=dev, hands=self.hands)
         root = RootCtx.of(game, eps.root_bid, eps.root_player)
-        state, (p0, p1) = solver.solve_with_snapshot(root, eps.beliefs, t)
+        state, (p0, p1) = solver.solve_with_snapshot(
+            root, local_hands(self.hands, eps.beliefs), t)
+        vals = state.root_values_means
+        if self.hands is not None:
+            p0 = self.hands.gather(p0, 1)  # [B, H, A]
+            p1 = self.hands.gather(p1, 2)  # [B, A, H, A]
+            vals = self.hands.gather(vals, 2)  # [B, 2, H]
         a1, a2 = draw_actions(gen, self.cfg, eps, p0, p1)
-        return advance(self.cfg, eps, p0, p1, state.root_values_means, a1,
-                       a2)
+        return advance(self.cfg, eps, p0, p1, vals, a1, a2)
 
 
 ENGINE_KINDS = ("auto", "generic", "fast", "batched", "kernel")

@@ -3,11 +3,12 @@ distributions, as ``csrc/refrng.cc`` exposes them through a C interface.
 
 The distributions are implementation-defined in C++, so the faithful way to
 draw the reference's numbers is to call the real library.  The port's own
-ctypes binding: it loads the tracked ``csrc/librebel_host.so``, or, where
-that file is absent, builds ``csrc/refrng.cc`` with ``g++`` into the
-git-ignored ``rebel_tpu_torch/_build/`` under a file lock (parallel test
-workers must not load a half-written library).  It writes nothing into
-``csrc/``.
+ctypes binding: :func:`library` loads the tracked ``csrc/librebel_host.so``,
+or, where that file is absent, builds the same library from ``csrc/``
+(``refrng.cc`` and ``replay_store.cc``) with ``g++`` into the git-ignored
+``rebel_tpu_torch/_build/`` under a file lock (parallel test workers must
+not load a half-written library).  It writes nothing into ``csrc/``.
+:mod:`rebel_tpu_torch.selfplay.host_store` binds the same library.
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ import numpy as np
 _ROOT = pathlib.Path(__file__).resolve().parents[2]
 CSRC_LIB = _ROOT / "csrc" / "librebel_host.so"
 SOURCE = _ROOT / "csrc" / "refrng.cc"
+SOURCES = (SOURCE, _ROOT / "csrc" / "replay_store.cc")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
-BUILT_LIB = BUILD_DIR / "librefrng.so"
+BUILT_LIB = BUILD_DIR / "librebel_host.so"
 
 _lib = None
 
@@ -32,14 +34,14 @@ def _build() -> pathlib.Path:
     import fcntl
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "librefrng.lock", "w") as lock:
+    with open(BUILD_DIR / "librebel_host.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if not BUILT_LIB.exists():
                 tmp = BUILT_LIB.with_suffix(f".{os.getpid()}.tmp")
                 subprocess.run(
                     ["g++", "-O2", "-std=c++17", "-fPIC", "-shared", "-o",
-                     str(tmp), str(SOURCE)],
+                     str(tmp), *map(str, SOURCES)],
                     check=True, capture_output=True)
                 os.replace(tmp, BUILT_LIB)
         finally:
@@ -52,10 +54,15 @@ def library_path() -> pathlib.Path:
     return CSRC_LIB if CSRC_LIB.exists() else _build()
 
 
+def library() -> ctypes.CDLL:
+    """The library, loaded (built first where needed)."""
+    return ctypes.CDLL(str(library_path()))
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(library_path()))
+        lib = library()
         lib.refrng_create.restype = ctypes.c_void_p
         lib.refrng_create.argtypes = [ctypes.c_uint]
         lib.refrng_destroy.argtypes = [ctypes.c_void_p]

@@ -15,8 +15,15 @@ leading axis of every tensor:
 All lanes step together, so the step counts are Python ints.  The value
 net enters as ``value_fn``, ``queries [N, Q] -> values [N, H]``, evaluated
 on the dense ``(a1, a2)`` grid (or, with ``compact_queries``, on the
-pseudo-leaf pairs only) in the solver's dtype.  The JAX package's split of
-the hands axis over a device mesh (``hands_axis``) is not ported here.
+pseudo-leaf pairs only) in the solver's dtype.
+
+With ``hands`` (a :class:`~rebel_tpu_torch.parallel.distributed.Axis` of
+ranks, the JAX package's ``hands_axis``) every ``[..., H]`` tensor holds
+this rank's slice of the hands (:func:`local_hands`).  The only traffic
+between the ranks is a sum of the D+1 match buckets in the terminal
+values, sums of the belief normalisations and the leaf scales, and a
+gather of the normalised beliefs for the net's queries, whose input is
+the whole belief vector.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import numpy as np
 import torch
 
 from rebel_tpu_torch.games.liars_dice import LiarsDice
+from rebel_tpu_torch.parallel.distributed import Axis
 from rebel_tpu_torch.solving.core import (
     RootCtx,
     ValueFn,
@@ -52,6 +60,15 @@ class Grid2State(NamedTuple):
     beliefs: torch.Tensor  # [B, 2, H]
 
 
+def local_hands(hands, x_full: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """This rank's slice of a whole-``H`` tensor along ``dim`` (all of it
+    without ``hands``)."""
+    if hands is None:
+        return x_full
+    h_loc = x_full.shape[dim] // hands.size
+    return x_full.narrow(dim, hands.index * h_loc, h_loc)
+
+
 def _lanes(x: torch.Tensor, ndim: int) -> torch.Tensor:
     """A per-lane ``[B]`` tensor shaped to broadcast against ``ndim``
     dimensions ``[B, ...]``."""
@@ -73,6 +90,8 @@ class Grid2Solver:
     # (a1, a2) grid: about a third of the MLP rows, the same values.
     compact_queries: bool = False
     device: str | torch.device = "cuda"
+    # The ranks the hands are split over (None: all hands here).
+    hands: Axis | None = None
 
     def __post_init__(self):
         if self.params.max_depth != 2:
@@ -98,6 +117,12 @@ class Grid2Solver:
                 "value_fn (subgame_solving.cc:177-186)")
 
     # ------------------------------------------------------------ helpers
+    def _psum(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.hands is None else self.hands.psum_(x)
+
+    def _gather_hands(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.hands is None else self.hands.gather(x, -1)
+
     def _win_values(self, bids, opp_mass):
         """``[..., H]`` payoff of the challenged ``bids [...]`` against the
         opponent's reach ``opp_mass [..., H]`` by the bucket algorithm
@@ -110,17 +135,17 @@ class Grid2Solver:
         faces = torch.remainder(bids, game.num_faces)
         quantities = 1 + torch.div(bids, game.num_faces,
                                    rounding_mode="floor")
-        own = self.matches[faces]  # [..., H]
+        own = local_hands(self.hands, self.matches[faces])  # [..., H]
         levels = torch.arange(D + 1, device=dev)
         onehot = (own[..., None] == levels).to(dt)  # [..., H, D+1]
-        buckets = (opp_mass[..., None] * onehot).sum(-2)  # [..., D+1]
+        buckets = self._psum((opp_mass[..., None] * onehot).sum(-2))
         cum = torch.flip(torch.cumsum(torch.flip(buckets, [-1]), -1), [-1])
         left = torch.clamp(quantities[..., None] - own, 0, D)
         sel = (left[..., None] == levels).to(dt)  # [..., H, D+1]
         p_win = (cum[..., None, :] * sel).sum(-1)
         if self.terminal_f32_parity:
             p_win = p_win.to(torch.float32).to(dt)
-        return p_win * 2 - opp_mass.sum(-1, keepdim=True)
+        return p_win * 2 - self._psum(opp_mass.sum(-1, keepdim=True))
 
     def _queries(self, root: RootCtx, traverser: int, b0, b1, a2):
         """``[..., Q]`` net queries at level-2 cells whose last bid is
@@ -177,7 +202,14 @@ class Grid2Solver:
             reach2_p0 = r2_t if traverser == 0 else r2_o
             reach2_p1 = r2_o if traverser == 0 else r2_t
             eps = reach_eps(dt)
-            norm = lambda x: (x + eps) / (x + eps).sum(-1, keepdim=True)
+
+            def norm(x):
+                """Normalised over all hands, then gathered whole: the
+                query holds the whole belief vector."""
+                x = x + eps
+                return self._gather_hands(
+                    x / self._psum(x.sum(-1, keepdim=True)))
+
             B = beliefs.shape[0]
             if self.compact_queries:
                 i1, i2 = self.pseudo_pairs.unbind(1)
@@ -186,8 +218,9 @@ class Grid2Solver:
                                   norm(reach2_p1[:, i1, i2]),
                                   i2.expand(B, -1))  # [B, L, Q]
                 net_vals = self.value_fn(q.reshape(-1, q.shape[-1]))
-                net_vals = net_vals.to(dt).reshape(B, len(i1), -1)
-                scale = r2_o[:, i1, i2].sum(-1, keepdim=True)
+                net_vals = local_hands(self.hands, net_vals.to(dt)).reshape(
+                    B, len(i1), -1)
+                scale = self._psum(r2_o[:, i1, i2].sum(-1, keepdim=True))
                 val2 = val2.clone()
                 val2[:, i1, i2] = net_vals * scale
             else:
@@ -195,8 +228,9 @@ class Grid2Solver:
                 q = self._queries(root, traverser, norm(reach2_p0),
                                   norm(reach2_p1), a2)  # [B, A1, A2, Q]
                 net_vals = self.value_fn(q.reshape(-1, q.shape[-1]))
-                net_vals = net_vals.to(dt).reshape(B, A, A, -1)
-                scale = r2_o.sum(-1, keepdim=True)
+                net_vals = local_hands(self.hands, net_vals.to(dt)).reshape(
+                    B, A, A, -1)
+                scale = self._psum(r2_o.sum(-1, keepdim=True))
                 val2 = val2 + torch.where(self.pseudo[None, :, :, None],
                                           net_vals * scale, 0.0)
         val2 = val2 * m1[None, :, :, None]

@@ -1,9 +1,11 @@
 """Self-play trainer (CFR or fictitious-play subgames): generation,
 learning, in-training exploitability and checkpoints on one card.
 
-Counterpart of ``rebel_tpu/training/trainer.py`` (single-process path).
-Generation and learning share one live net, so actors always use the
-learner's current weights, and the replay ring never leaves the device.
+Counterpart of ``rebel_tpu/training/trainer.py``: :meth:`Trainer.run` on
+one device, :meth:`Trainer.run_spmd` over the ranks of a process group
+(:mod:`rebel_tpu_torch.parallel.mesh`).  Generation and learning share one
+live net, so actors always use the learner's current weights, and the
+replay ring never leaves the device.
 
 Kept semantics:
 
@@ -48,6 +50,7 @@ import pathlib
 import pickle
 import time
 
+import numpy as np
 import torch
 
 from rebel_tpu_torch.games.liars_dice import LiarsDice
@@ -285,6 +288,11 @@ class Trainer:
         self.burn_in_s = 0.0  # host seconds of the last run's burn-in
         self._eval_mse_broken = False
 
+    def reset_optimizer(self) -> None:
+        """A fresh optimizer over the net (step count 0)."""
+        self.opt = make_optimizer(self.cfg, self.net.parameters())
+        self.step = 0
+
     # ------------------------------------------------------------ steps
     def gen_chunk(self) -> torch.Tensor:
         """``gen_chunk_steps`` lockstep engine steps; each pushes
@@ -324,22 +332,32 @@ class Trainer:
         loss, per_ex = self.loss_fn(sample.queries, sample.values)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
+        g_norm = self.clipped_step()
+        return dict(loss=loss.detach(), g_norm=g_norm,
+                    **self.bucket_sums(sample, per_ex))
+
+    def clipped_step(self) -> torch.Tensor:
+        """Optax's global-norm clip of the gradients in ``.grad``, then one
+        optimizer step at the scheduled lr.  Returns the gradients' norm
+        before the clip."""
         grads = [p.grad for p in self.net.parameters()]
         g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
-        keep = g_norm < cfg.grad_clip
+        keep = g_norm < self.cfg.grad_clip
         for g in grads:
-            g.copy_(torch.where(keep, g, g / g_norm * cfg.grad_clip))
+            g.copy_(torch.where(keep, g, g / g_norm * self.cfg.grad_clip))
         lr = self.schedule(self.step)
         for group in self.opt.param_groups:
             group["lr"] = lr
         self.opt.step()
         self.step += 1
+        return g_norm.detach()
+
+    def bucket_sums(self, sample: rb.Sample, per_ex: torch.Tensor) -> dict:
+        """Per-last-action example counts, loss sums and value sums."""
         nb = self.game.num_actions + 1
         bucket = last_action_index(sample.queries, self.game.num_actions)
         z = lambda: torch.zeros(nb, device=self.device)
         return dict(
-            loss=loss.detach(),
-            g_norm=g_norm.detach(),
             counts=z().index_add_(0, bucket, torch.ones_like(per_ex)),
             loss_sums=z().index_add_(0, bucket, per_ex.detach()),
             val_sums=z().index_add_(0, bucket, sample.values.sum(-1)),
@@ -482,6 +500,303 @@ class Trainer:
         finally:
             wd.stop()
         return all_metrics
+
+    # -------------------------------------------------- SPMD epoch loop
+    def run_spmd(self, max_epochs: int | None = None, resume: bool = True,
+                 hands: int = 1):
+        """Epoch loop over the SPMD programs of
+        :mod:`rebel_tpu_torch.parallel.mesh`: lanes and replay rows split
+        over the data axis, gradients averaged, the net replicated.  Every
+        rank runs this loop in lockstep, its control flow driven by
+        replicated scalars (sums over the ranks, or rank 0's clock), and
+        holds the net to every other rank's with ``torch.equal`` after
+        each epoch (a difference raises).  The ranks form a grid of
+        ``world // hands`` data ranks by ``hands`` hands ranks.
+
+        Rank 0 alone writes: ``metrics.jsonl`` (with ``spmd/devices`` and
+        ``spmd/processes``), ``heartbeat``, the in-training
+        exploitability, and at checkpoint epochs ``ckpt/epoch<N>.spmd.ckpt``
+        (net, optimizer, the gathered rings, episodes and every data
+        rank's generator state, epoch, ``n_data``) and
+        ``ckpt/epoch<N>.params``, each written under a temporary name
+        and renamed, with ``keep_checkpoints`` retention of the state
+        files.  With ``resume`` the newest state file is read: in full
+        when its ``n_data`` is this grid's; otherwise the net and the
+        optimizer only, with fresh rings and the generators seeded past
+        the resume epoch.  Validation snapshots, dumps, preload, purging,
+        ``benchmark_data_gen``, ``fake_training`` and the stall watchdog
+        run here as in :meth:`run`.  Returns ``(state, metrics)``: this
+        rank's :class:`~rebel_tpu_torch.parallel.mesh.SpmdState` and one
+        dict per epoch."""
+        from rebel_tpu_torch.parallel import mesh as meshlib
+        from rebel_tpu_torch.parallel.distributed import (
+            all_gather,
+            broadcast_,
+            group_size,
+        )
+
+        cfg = self.cfg
+        layout = meshlib.make_layout(hands)
+        init_state, gen_step, train_step = meshlib.make_spmd_programs(
+            self, layout, hands=layout.n_hands > 1)
+        n_data, master, dev = layout.n_data, layout.is_master, self.device
+        log.info("[SPMD] rank %d of %d ranks, data x hands %d x %d%s",
+                 layout.rank, layout.world, n_data, layout.n_hands,
+                 f" (the hands axis splits num_hands={self.game.num_hands})"
+                 if layout.n_hands > 1 else "")
+        max_epochs = max_epochs or cfg.max_epochs
+        out_dir = self.out_dir if master else None
+
+        def total(key: str) -> int:
+            """A ring count summed over the data axis."""
+            return int(layout.data.psum_(
+                torch.tensor([getattr(state.replay, key)])))
+
+        def rank0_says(flag: bool) -> bool:
+            return bool(broadcast_(torch.tensor([int(flag)]), 0))
+
+        start_epoch, saved, ckpts = 0, None, []
+        if resume and self.out_dir is not None:
+            ckpts = spmd_checkpoints(self.out_dir / "ckpt")
+            if ckpts:
+                saved = torch.load(ckpts[-1], map_location="cpu",
+                                   weights_only=True)
+                start_epoch = int(saved["epoch"]) + 1
+        # The rings and the generators are laid out per data rank, so a
+        # full resume needs the checkpoint's data-axis size; otherwise the
+        # rings restart empty and the streams are seeded past the resume
+        # epoch (a resumed run must not replay epoch 0's episodes).
+        full_resume = saved is not None and saved["n_data"] == n_data
+        state = init_state(cfg.seed + (0 if full_resume else start_epoch))
+        d = layout.data.index
+        if saved is not None:
+            self.net.load_state_dict(saved["net"])
+            self.opt.load_state_dict(saved["optimizer"])
+            self.step = int(saved["step"])
+            if full_resume:
+                lanes = state.episodes.root_bid.shape[0]
+                state.episodes = EpisodeState(**{
+                    k: v[d * lanes:(d + 1) * lanes].to(dev)
+                    for k, v in saved["episodes"].items()})
+                meshlib.ring_segment(saved["replay"], d, state.replay)
+                self.gen_steps = int(saved["gen_steps"])
+                if saved["generator_device"] == state.gen.device.type:
+                    # A copy: set_state reads a view's storage from its
+                    # start (row 1 of the stack crashes the process).
+                    state.gen.set_state(saved["generators"][d].clone())
+                else:
+                    log.warning("run_spmd: the checkpoint's generators are %s "
+                                "ones; reseeding past epoch %d",
+                                saved["generator_device"], start_epoch)
+                    state.gen.manual_seed(meshlib.rank_seed(
+                        cfg.seed + start_epoch, d))
+            else:
+                log.warning(
+                    "run_spmd: checkpoint was written on a %s-wide data "
+                    "axis but the layout has %s; replay ring and episode "
+                    "states restart empty", saved["n_data"], n_data)
+            log.info("run_spmd: resumed from %s (epoch %d%s)", ckpts[-1],
+                     start_epoch, ", full state" if full_resume
+                     else ", params+opt only")
+        # The trainer's own ring and lanes become this rank's.
+        self.replay, self.episodes, self.gen = (state.replay, state.episodes,
+                                                state.gen)
+        self.epoch = start_epoch
+        # With the rings restored, num_add counts the generation before
+        # the resume, so the throttle's target counts from epoch 0; with
+        # fresh rings it must not demand the earlier epochs' again.
+        throttle_base = 0 if full_resume else start_epoch
+        if out_dir is not None:
+            out_dir.mkdir(parents=True, exist_ok=True)
+        all_metrics, val_sets = [], []
+
+        if cfg.train_preload and total("num_add") == 0:
+            log.info("Preloading dataset from %s", cfg.train_preload)
+            rows_q, rows_v = rb.load_file(cfg.train_preload)
+            cap = state.replay.capacity
+            base = {"queries": np.zeros((n_data * cap, self.game.query_size),
+                                        np.float32),
+                    "values": np.zeros((n_data * cap, self.game.num_hands),
+                                       np.float32),
+                    "priorities": np.zeros((n_data * cap,), np.float32)}
+            meshlib.ring_segment(
+                meshlib.rows_to_ring(base, rows_q, rows_v, n_data), d,
+                state.replay)
+
+        if cfg.benchmark_data_gen:
+            added0 = total("num_add")
+            t0 = time.perf_counter()
+            while rank0_says(time.perf_counter() - t0
+                             < cfg.benchmark_data_gen):
+                gen_step(state)
+            self._sync()
+            size = total("num_add") - added0
+            elapsed = time.perf_counter() - t0
+            metrics = {"benchmark/examples": size,
+                       "benchmark/examples_per_s": size / elapsed,
+                       "benchmark/seconds": elapsed,
+                       "spmd/devices": layout.world}
+            if master:
+                log.info("BENCHMARK size %s speed %.2f", size, size / elapsed)
+                self._write_metrics(metrics)
+            return state, [metrics]
+
+        t0 = time.perf_counter()
+        while total("num_add") < 4 * cfg.train_batch_size:
+            gen_step(state)
+        self._sync()
+        self.burn_in_s = time.perf_counter() - t0
+
+        wd = StallWatchdog(cfg.stall_timeout_s, out_dir,
+                           what="spmd-train").start()
+        try:
+            for epoch in range(start_epoch, max_epochs):
+                wd.alive(epoch)
+                # Validation snapshots: the rings gathered, sampled with
+                # the same seed on every rank.
+                if (cfg.create_validation_set_every
+                        and epoch % cfg.create_validation_set_every == 0):
+                    rows_q, rows_v = meshlib.ring_valid_rows(
+                        meshlib.gather_to_host(
+                            layout.data, meshlib.ring_parts(state.replay)),
+                        n_data)
+                    if len(rows_q):
+                        rng = np.random.default_rng(cfg.seed * 9973 + epoch)
+                        idx = rng.integers(
+                            0, len(rows_q),
+                            cfg.validation_batches * cfg.train_batch_size)
+                        val_sets.append((f"valid_snapshot_{epoch:04d}",
+                                         rows_q[idx], rows_v[idx]))
+                if (cfg.dump_dataset_every_epochs
+                        and epoch % cfg.dump_dataset_every_epochs == 0):
+                    host = meshlib.gather_to_host(
+                        layout.data, meshlib.ring_parts(state.replay))
+                    if out_dir is not None:
+                        rows_q, rows_v = meshlib.ring_valid_rows(host, n_data)
+                        dump_dir = out_dir / "dumped_data"
+                        dump_dir.mkdir(parents=True, exist_ok=True)
+                        n = len(rows_q)
+                        rb.save(rb.Replay(torch.from_numpy(rows_q),
+                                          torch.from_numpy(rows_v),
+                                          torch.ones(n), 0, n, n),
+                                dump_dir / f"data_{epoch:03d}.dat")
+
+                t0 = time.perf_counter()
+                while cfg.train_gen_ratio and (
+                        total("num_add") * cfg.train_gen_ratio
+                        < cfg.train_epoch_size * (epoch + 1 - throttle_base)):
+                    gen_step(state)
+                self._sync()
+                gen_s = time.perf_counter() - t0
+
+                t0 = time.perf_counter()
+                stats = ([] if cfg.fake_training else
+                         [train_step(state)
+                          for _ in range(self.steps_per_epoch)])
+                self._sync()
+                train_s = time.perf_counter() - t0
+                metrics = {"epoch": epoch, "buffer/added": total("num_add"),
+                           "timing/gen": gen_s, "timing/train": train_s,
+                           "spmd/devices": layout.world,
+                           "spmd/processes": group_size()}
+                if stats:
+                    host = lambda k: torch.stack([s[k] for s in stats]).cpu()
+                    g_norm = host("g_norm")
+                    metrics.update({
+                        "loss/train": float(host("loss").mean()),
+                        "optim/lr": lr_schedule(cfg, 1)(epoch),
+                        "optim/grad_max": float(g_norm.max()),
+                        "optim/grad_mean": float(g_norm.mean())})
+                    metrics.update(bucket_metrics(
+                        self.game, host("counts").sum(0).tolist(),
+                        host("loss_sums").sum(0).tolist(),
+                        host("val_sums").sum(0).tolist()))
+                if cfg.purging_epochs and (epoch + 1) in cfg.purging_epochs:
+                    rb.pop_until(state.replay, max(
+                        2 * (cfg.train_batch_size // n_data),
+                        int(cfg.purging_share_keep * total("size"))
+                        // n_data))
+                # The net must be the same on every rank.
+                every = all_gather(meshlib.flat_params(self.net)).view(
+                    layout.world, -1)
+                differ = [r for r in range(layout.world)
+                          if not torch.equal(every[r], every[0])]
+                if differ:
+                    raise RuntimeError(f"epoch {epoch}: the net of ranks "
+                                       f"{differ} differs from rank 0's")
+                ckpt_epoch = epoch % cfg.checkpoint_every == 0
+                if ckpt_epoch and self.out_dir is not None:
+                    # Collectives: every rank joins, rank 0 writes.
+                    t0 = time.perf_counter()
+                    full = {
+                        "episodes": meshlib.gather_to_host(
+                            layout.data, state.episodes._asdict()),
+                        "replay": meshlib.gather_to_host(
+                            layout.data, meshlib.ring_parts(state.replay)),
+                        "generators": layout.data.gather(
+                            state.gen.get_state()[None], 0).cpu()}
+                    if master:
+                        metrics["checkpoint/bytes"] = \
+                            self.save_spmd_checkpoint(epoch, n_data, full)
+                        metrics["timing/checkpoint"] = \
+                            time.perf_counter() - t0
+                self.epoch = epoch + 1
+                if master:
+                    if (cfg.exploit and cfg.exploit_every
+                            and epoch % cfg.exploit_every == 0):
+                        # The other ranks wait at their next collective.
+                        t0 = time.perf_counter()
+                        metrics.update(self.evaluate_params(self.net))
+                        metrics["timing/exploit"] = time.perf_counter() - t0
+                    if ckpt_epoch:
+                        for name, vq, vv in val_sets:
+                            with torch.no_grad():
+                                metrics[f"loss/{name}"] = float(self.loss_fn(
+                                    torch.from_numpy(vq).to(dev),
+                                    torch.from_numpy(vv).to(dev))[0])
+                    log.info("[SPMD] epoch %d loss %.6f exploit %s (%d "
+                             "devices, %d procs)", epoch,
+                             metrics.get("loss/train", float("nan")),
+                             metrics.get("exploitability_avg",
+                                         metrics.get("exploitability_last",
+                                                     "-")),
+                             layout.world, group_size())
+                    if out_dir is not None:
+                        self._write_metrics(metrics)
+                        (out_dir / "heartbeat").touch()
+                log.info("[SPMD] rank %d epoch %d: net equal on all %d "
+                         "ranks", layout.rank, epoch, layout.world)
+                all_metrics.append(metrics)
+        finally:
+            wd.stop()
+        return state, all_metrics
+
+    def save_spmd_checkpoint(self, epoch: int, n_data: int,
+                             full: dict) -> int:
+        """``ckpt/epoch{epoch}.spmd.ckpt`` (the net, the optimizer, the
+        gathered ``full`` state of the data ranks, ``n_data``) and
+        ``ckpt/epoch{epoch}.params``, each renamed into place once
+        written; prunes state files beyond ``keep_checkpoints``.  Returns
+        the bytes written."""
+        ckpt_dir = self.out_dir / "ckpt"
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+        ckpt, params = (ckpt_dir / f"epoch{epoch}.spmd.ckpt",
+                        ckpt_dir / f"epoch{epoch}.params")
+        tmp = ckpt_dir / f".epoch{epoch}.spmd.ckpt.tmp"
+        torch.save({"epoch": epoch, "n_data": n_data, "step": self.step,
+                    "gen_steps": self.gen_steps,
+                    "net": self.net.state_dict(),
+                    "optimizer": self.opt.state_dict(),
+                    "generator_device": self.device.type, **full}, tmp)
+        tmp.replace(ckpt)
+        tmp = ckpt_dir / f".epoch{epoch}.params.tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(convert.to_flax(self.net.state_dict()), f)
+        tmp.replace(params)
+        if self.cfg.keep_checkpoints:
+            for old in spmd_checkpoints(ckpt_dir)[:-self.cfg.keep_checkpoints]:
+                old.unlink()
+        return ckpt.stat().st_size + params.stat().st_size
 
     def _epoch_metrics(self, stats: list[dict], epoch: int) -> dict:
         cfg = self.cfg
@@ -661,6 +976,17 @@ def checkpoints(ckpt_dir: pathlib.Path) -> list[pathlib.Path]:
         return []
     return sorted((p for p in ckpt_dir.glob("epoch*.ckpt")
                    if p.stem[5:].isdigit()), key=lambda p: int(p.stem[5:]))
+
+
+def spmd_checkpoints(ckpt_dir: pathlib.Path) -> list[pathlib.Path]:
+    """SPMD state files ``epoch<N>.spmd.ckpt`` in ``ckpt_dir``, oldest
+    first."""
+    if not ckpt_dir.exists():
+        return []
+    found = [(p.name[5:-len(".spmd.ckpt")], p)
+             for p in ckpt_dir.glob("epoch*.spmd.ckpt")]
+    return [p for _, p in sorted((int(n), p) for n, p in found
+                                 if n.isdigit())]
 
 
 def load_params(path, game: LiarsDice, device="cuda") -> CFVNet:

@@ -183,7 +183,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rebel_tpu")
 def _port_sources():
     files = sorted((REPO / "rebel_tpu_torch").rglob("*.py"))
     return files + [REPO / "chip_smoke.py", REPO / "chip_mutants.py",
-                    REPO / "chip_studies.py"]
+                    REPO / "chip_studies.py", REPO / "spmd_parity.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),

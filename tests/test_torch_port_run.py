@@ -1,7 +1,9 @@
 """The port's run entry (``python -m rebel_tpu_torch.run``) on the CPU: a
 training run as users start it, every run mode, resume to the same
 parameters as an uninterrupted run, the fallback over an unreadable
-checkpoint, ``task=eval`` with the zero net, the refusals, and the stall
+checkpoint, ``task=eval`` with the zero net, the refusals (cluster
+management, a hands axis that does not divide the ranks, a card that is
+not there), ``launcher.spmd=true`` in one process, and the stall
 watchdog."""
 
 import json
@@ -120,8 +122,8 @@ def test_eval_task_with_the_zero_net(tmp_path):
 
 
 @pytest.mark.parametrize("args", [
-    ["--mode", "submit"], ["launcher.num_processes=2"], ["launcher.spmd=true"],
-    ["--device", "cuda"]])
+    ["--mode", "submit"], ["--mode", "cluster_status"],
+    ["launcher.num_processes=2", "launcher.hands=3"], ["--device", "cuda"]])
 def test_refusals(tmp_path, args):
     if args == ["--device", "cuda"] and torch.cuda.is_available():
         pytest.skip("CUDA is available; the refusal needs a host without it")
@@ -130,6 +132,22 @@ def test_refusals(tmp_path, args):
                      *(["--device", "cpu"] if "--device" not in args
                        else []), *TINY, *args])
     assert not (tmp_path / "x" / "result.json").exists()
+
+
+def test_spmd_in_one_process_ignores_hands(tmp_path, caplog):
+    """``launcher.spmd=true launcher.hands=2`` where one process runs (on
+    the CPU, or with one card) trains in that process and ignores the
+    hands axis, as the JAX package does at one device."""
+    caplog.set_level("INFO")
+    out = entry(tmp_path, "launcher.spmd=true", "launcher.hands=2",
+                "max_epochs=1")
+    assert out.code == 0 and epochs(tmp_path) == [0]
+    assert "launcher.hands=2 unused by one process" in caplog.text
+    result = json.loads((tmp_path / "result.json").read_text())
+    assert result["processes"] == 1 and result["backend"] is None
+    # The CPU runs the kernels' plain versions: nothing launched.
+    (launches,) = result["kernel_launches"]
+    assert launches and not any(launches.values())
 
 
 def test_watchdog_exits_87_with_a_stalled_file(tmp_path):
