@@ -143,6 +143,13 @@ MUTANTS = {
         "        const float b = __ldg(bias + lane + 32 * i);",
         "        const float b = __ldg(bias + (lane + 1 + 32 * i) % NH);",
         CHECK_PHASES),
+    # The bf16 MLP's rows: a warp whose only real row is its first taken
+    # for padding (it skips the epilogue and the head; knob-checks'
+    # mlp_chunks=28 at lane block 1 gives a warp one real row).
+    "pad-skip-real": (
+        "const bool warp_live = R0 < n;",
+        "const bool warp_live = R0 + 1 < n;",
+        KNOB_PHASES),
     # The same shift in LayerNorm's scale (the checks' nets draw it from a
     # seed).
     "epilogue-ln-scale-shift": (

@@ -91,8 +91,10 @@ an H100, ``sm_90a``).  It
    fused solve at its chosen lane block, and the checkpoint;
 15. ``fast-check``: the ``fast`` engine (plain PyTorch, f32): a 16-repeat
    evaluation of each 1x4f net against the kernel with an f32 MLP, with
-   phase 7's limits (CFR over 16 subgame iterations, FP over 1024), and
-   ``bench --layout batch_first`` for 2 steps;
+   phase 7's limits (CFR over 16 subgame iterations, FP over 1024), the
+   fixed-seed episode replication on the card against the reference
+   C++'s fixtures (``tests/golden/episodes_*_1x4.json``), and ``bench
+   --layout batch_first`` for 2 steps;
 16. ``spmd``: the SPMD path (``Trainer.run_spmd``,
    ``rebel_tpu_torch.parallel``) with the round-5 overrides at full width:
    (a) at world size 1 over NCCL in this process, two epochs and a
@@ -107,8 +109,9 @@ an H100, ``sm_90a``).  It
    the ranks; (d) the ``fast`` engine with the hands split over two gloo
    ranks (1x4f, f64) against the unsplit engine;
 17. prints the whole run's seconds, one ``{"kernels": [...]}`` line with
-   the three kernels and ``{"ok": true, "device": {...}}`` as the last
-   line.
+   the three kernels (each with its lane block at the main path's shapes
+   and, under ``modes``, the larger games' timed launches with theirs)
+   and ``{"ok": true, "device": {...}}`` as the last line.
 
 The launch counts of the kernels are set to 0 just before each of the
 paths (4, 6 for each net, 8, 10, each run of 11, 14, 16a) and read just
@@ -271,13 +274,15 @@ EXPLOIT_RTOL = {"cfr": 0.10, "fp": 0.02}
 # kernel with "cheaperf" and gelu="exact" must be PRECEDENCE_FACTOR times
 # closer to the plain fast GELU than to the plain exact one; and the values
 # of mlp_chunks held to the default bit for bit are, by lane block, some
-# at the default lane block of 8 and 1 and 2 at a lane block of 2 (neither
-# MLP stages a group of pairs, so every value fits and 1 is the default
-# at 1x4f in f32 and bf16 alike).
+# at the default lane block of 8, 1 and 2 at a lane block of 2, and 28 at
+# a lane block of 1, where each group of pairs is one row and the warp
+# that holds it has one real row of 16 (neither MLP stages a group of
+# pairs, so every value fits and 1 is the default at 1x4f in f32 and bf16
+# alike).
 MOST_LANES = 0.9
 MOST_LANES_TOL = {"f32": 1e-5, "bf16": 1e-4}
 PRECEDENCE_FACTOR = 4
-KNOB_CHUNKS = {8: (2, 4, 7, 28), 2: (1, 2)}
+KNOB_CHUNKS = {8: (2, 4, 7, 28), 2: (1, 2), 1: (28,)}
 
 # The instantiations of grid2_kernel<WT, FP, NG> by their mangled
 # names' template arguments (FP, NG), and the MLP's operands WT (the f32
@@ -327,11 +332,14 @@ GAMES_1024_CONTROL_LANES = 32
 GAMES_PLAIN_CHUNK = 16384
 # The lane block must not change a lane's arithmetic: at 2x3f and 1x6f
 # over the path's iterations, each pair of blocks gives the same bits
-# (game, solver, operand type, blocks).
+# (game, solver, operand type, blocks), among them the bf16 lane blocks
+# the wrapper chooses, whose rows the MLP deals to warps otherwise.
 LANE_BLOCK_PAIRS = (((2, 3), "cfr", "bf16", (1, 2)),
                     ((1, 6), "fp", "bf16", (1, 2)),
                     ((2, 3), "fp", "f32", (1, 2)),
-                    ((2, 3), "cfr", "f32", (1, 4)))
+                    ((2, 3), "cfr", "f32", (1, 4)),
+                    ((2, 3), "fp", "bf16", (1, 2)),
+                    ((1, 6), "cfr", "bf16", (2, 4)))
 # The fast engine's check (phase 15) over each solver's subgame
 # iterations: CFR's f32 iterates are chaotic, so that two correct f32
 # engines read a 16-repeat evaluation 10.7% apart over 64 iterations and
@@ -340,6 +348,14 @@ LANE_BLOCK_PAIRS = (((2, 3), "cfr", "bf16", (1, 2)),
 # package's step by step.  FP does not drift and is held over the path's
 # 1024.
 FAST_CHECK_ITERS = {"cfr": 16, "fp": 1024}
+# Fixed-seed episode replication (phase 15, on the card) against the
+# reference C++'s fixtures, at the CPU test's tolerances for CFR
+# (tests/test_torch_port_replicate.py): queries and values of every
+# example; FP, bit for bit on the CPU, is held to them too on the card,
+# where the float64 solve's sums may contract differently.
+REPLICATE_FIXTURES = ("episodes_fp_1x4.json", "episodes_fp_single_1x4.json",
+                      "episodes_cfr_1x4.json")
+REPLICATE_ATOL = {"query": 1e-5, "values": 1e-4}
 # The run entry at 2x3 (phase 14): the round-5 overrides, burn-in and one
 # epoch with its checkpoint, no exploit evaluation (the recursion over the
 # 2x3 tree is a host loop of unknown length).
@@ -506,6 +522,8 @@ def main() -> int:
     # phases measured.
     launches = dict.fromkeys(KERNELS, 0)
     measured: dict[str, dict] = {}
+    # Per kernel: the larger games' launches the games phase timed.
+    game_modes: dict[str, list] = {}
 
     def lap(name: str) -> None:
         nonlocal mark
@@ -910,7 +928,8 @@ def main() -> int:
               f"{flops / (kernel_ms / 1e3):.4e} FLOP/s")
         measured[kernel] = dict(max_abs_err=err, ms=kernel_ms,
                                 plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by)
+                                bound_by=bound_by,
+                                lane_block=grid2p.solve.last_lane_block)
 
     def shapes(kernel: str, make_params, trainer, check_1024) -> None:
         """The kernel at its self-play path's shapes (the trained net in
@@ -1320,13 +1339,19 @@ def main() -> int:
                  dict(lane_block=12), True),
                 ("bf16 fp lane_block 12", (game, fp(CHECK_ITERS), *part,
                                            args[6]), dict(lane_block=12),
+                 True),
+                ("bf16 fp lane_block 32", (game, fp(CHECK_ITERS), *args[2:6],
+                                           args[6]), dict(lane_block=32),
                  False),
                 ("bf16 cfr 3 hidden layers", (*args[:6], net3_dev),
                  dict(lane_block=8), False),
                 ("f32 cfr lane_block 16", args, dict(lane_block=16), True),
                 ("f32 fp lane_block 24", (game, fp(CHECK_ITERS), *(
                     x[:1008] for x in args[2:6]), args[6]),
-                 dict(lane_block=24), False)):
+                 dict(lane_block=24), True),
+                ("f32 fp lane_block 32", (game, fp(CHECK_ITERS), *args[2:6],
+                                          args[6]), dict(lane_block=32),
+                 False)):
             dtype = f32 if label.startswith("f32") else bf16
             got = fits(label, *a, dtype, **knobs)
             print(f"  {label}: {got}")
@@ -1617,6 +1642,9 @@ def main() -> int:
                           f"bound {bound_ms:.3f} ms ({flops:.4e} model FLOP "
                           f"at the {'bf16' if bf16 else 'f32'} peak, share "
                           f"{bound_ms / ms:.2%})")
+                    game_modes.setdefault(kernel, []).append(dict(
+                        game=f"{nd}x{nf}", operands="bf16" if bf16 else "f32",
+                        lane_block=lb, ms=ms, bound_ms=bound_ms))
                     if not finite(out):
                         failures.append(f"games {name}: non-finite outputs "
                                         f"at B={B}")
@@ -1759,6 +1787,42 @@ def main() -> int:
                   f"{EXPLOIT_RTOL[solver]:.1e} {'ok' if ok else 'MISS'}")
             if not ok:
                 failures.append(f"fast engine check {solver}")
+        import numpy as np
+
+        from rebel_tpu_torch.selfplay.replicate import replicate_episodes
+
+        for fixture in REPLICATE_FIXTURES:
+            gold = json.loads((ROOT / "tests" / "golden" / fixture)
+                              .read_text())
+            rcfg = RecursiveSolvingParams(
+                num_dice=1, num_faces=4, subgame_params=SubgameSolvingParams(
+                    num_iters=gold["num_iters"], max_depth=2,
+                    linear_update=True, use_cfr=bool(gold["use_cfr"])),
+                random_action_prob=0.25, sample_leaf=bool(gold["sample_leaf"]))
+            t0 = time.perf_counter()
+            mine = replicate_episodes(rcfg, seed=gold["seed"],
+                                      episodes=gold["episodes"])
+            dq = max(float(np.abs(ex.query - np.float32(q)).max())
+                     for ex, q in zip(mine, gold["queries"]))
+            dv = max(float(np.abs(ex.values - np.float32(v)).max())
+                     for ex, v in zip(mine, gold["values"]))
+            exact = sum(bool(np.array_equal(ex.query, np.float32(q))
+                             and np.array_equal(ex.values, np.float32(v)))
+                        for ex, q, v in zip(mine, gold["queries"],
+                                            gold["values"]))
+            ok = (len(mine) == len(gold["queries"])
+                  and dq <= REPLICATE_ATOL["query"]
+                  and dv <= REPLICATE_ATOL["values"])
+            print(f"check replicate {fixture} on the card: {len(mine)} "
+                  f"examples of {len(gold['queries'])} from "
+                  f"{gold['episodes']} episodes, query max_abs_diff {dq:.3e} "
+                  f"(limit {REPLICATE_ATOL['query']:.0e}), values "
+                  f"{dv:.3e} (limit {REPLICATE_ATOL['values']:.0e}), "
+                  f"{exact} bit-identical; {time.perf_counter() - t0:.2f} s "
+                  f"{'ok' if ok else 'MISS'}")
+            if not ok:
+                failures.append(f"replicate {fixture}")
+
         from rebel_tpu_torch import bench
 
         reset_counts()
@@ -1982,6 +2046,7 @@ def main() -> int:
         "launches": launches[kernel],
         **measured[kernel],
         "library_ms": None,
+        "modes": game_modes.get(kernel, []),
     } for kernel, replaces in (
         ("grid2_cfr", "rebel_tpu/solving/grid2p.py:844"),
         ("grid2_fp", "rebel_tpu/solving/grid2p.py:554"),

@@ -7,6 +7,7 @@ not checks: what ``PERF.md`` quotes beside ``chip_smoke.py``'s readings.
     python3 chip_studies.py sum-order --out DIR [--game 2x3] [--seed 62]
     python3 chip_studies.py eval-sum-order --out DIR [--game 2x3]
     python3 chip_studies.py same-bits --old PATH --out DIR
+    python3 chip_studies.py launches --out DIR
 
 From the root of a checkout.  ``drift`` (card only): the exploitability
 of a ``--repeats``-repeat sampled evaluation (depth-2 subgames, the
@@ -42,7 +43,15 @@ the repo's trained net, no net, and ``interleave=2`` at 1x4f; 1024 lanes,
 1024 iterations), in processes taken in turns (:data:`SAME_BITS_TURNS`);
 the three outputs are compared with ``torch.equal`` and each mode's
 launch is timed for both versions on the one card (``ms_old``,
-``ms_tree``); rows in ``DIR/same_bits.json``.
+``ms_tree``); rows in ``DIR/same_bits.json``.  ``launches`` (the CPU, about
+ten minutes): how many launches of the fused solve a sampled evaluation
+makes at each game of ``eval_all``'s defaults, counted from the code
+(the frontier solver's chunks, each one launch on the card, with the
+lane block the wrapper chooses there): the paper protocol's
+1024 repeats and the trainer's ``eval_num_repeats`` (8, the in-training
+``exploitability_avg``, which runs the kernel with an f32 MLP); the count
+depends on neither the net nor the subgame iterations, so it runs
+without a net over one iteration; rows in ``DIR/launches.json``.
 """
 
 from __future__ import annotations
@@ -571,6 +580,57 @@ def eval_sum_order(args) -> list[dict]:
     return rows
 
 
+# launches: (game, repeats); the trainer's default eval_num_repeats is 8.
+LAUNCH_GAMES = ((1, 4), (1, 5), (1, 6), (2, 3))
+LAUNCH_REPEATS = (1024, 8)
+
+
+def launches(args) -> list[dict]:
+    """The fused solve's launches of a sampled evaluation: the kernel
+    engine's frontier solver on the CPU (its plain version), with every
+    chunk it solves counted, each of which the card solves in one launch
+    (padded to the lane block)."""
+    import torch
+
+    from rebel_tpu_torch.eval import recursive, recursive_eval
+    from rebel_tpu_torch.games.liars_dice import LiarsDice
+    from rebel_tpu_torch.solving.params import SubgameSolvingParams
+
+    count = {"n": 0}
+    solve_chunk = recursive.Grid2FrontierSolver._solve_chunk
+
+    def counted(self, *a):
+        count["n"] += 1
+        return solve_chunk(self, *a)
+
+    recursive.Grid2FrontierSolver._solve_chunk = counted
+    rows = []
+    try:
+        for nd, nf in LAUNCH_GAMES:
+            game = LiarsDice(nd, nf)
+            for use_cfr in (True, False):
+                sub = SubgameSolvingParams(num_iters=1, max_depth=2,
+                                           use_cfr=use_cfr,
+                                           linear_update=True)
+                for repeats in LAUNCH_REPEATS:
+                    count["n"] = 0
+                    t0 = time.perf_counter()
+                    recursive_eval.sampled_eval(
+                        game, sub, None, repeats, None,
+                        dtype=torch.float32, progress=False,
+                        engine="kernel", device="cpu")
+                    row = dict(game=f"{nd}x{nf}",
+                               solver="cfr" if use_cfr else "fp",
+                               repeats=repeats, launches=count["n"],
+                               seconds=time.perf_counter() - t0)
+                    print(json.dumps(row), flush=True)
+                    rows.append(row)
+    finally:
+        recursive.Grid2FrontierSolver._solve_chunk = solve_chunk
+    (args.out / "launches.json").write_text(json.dumps(rows, indent=1))
+    return rows
+
+
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="study", required=True)
@@ -606,6 +666,8 @@ def main(argv=None) -> list[dict]:
     b = sub.add_parser("same-bits")
     b.add_argument("--old", type=pathlib.Path, required=True)
     b.add_argument("--out", type=pathlib.Path, required=True)
+    n = sub.add_parser("launches")
+    n.add_argument("--out", type=pathlib.Path, required=True)
     bl = sub.add_parser("same-bits-launch")
     bl.add_argument("--root", type=pathlib.Path, required=True)
     bl.add_argument("--out", type=pathlib.Path, required=True)
@@ -618,7 +680,7 @@ def main(argv=None) -> list[dict]:
     study = {"drift": drift, "f32-ladder": f32_ladder,
              "sum-order": sum_order,
              "eval-sum-order": eval_sum_order,
-             "same-bits": same_bits}[args.study]
+             "same-bits": same_bits, "launches": launches}[args.study]
     return study(args)
 
 

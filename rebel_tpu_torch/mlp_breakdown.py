@@ -9,10 +9,11 @@ rounds (every variant once per round).  A variant's results are wrong by constru
 time means something.  Prints one JSON line per reading.
 
 * ``mlp``: the parts of the bf16 MLP stage (the wgmma products, the f32
-  epilogue of the hidden layers, the head), at 1x4f (256x2 net with
-  LayerNorm, random weights from a seed, ``--batch`` lanes, 1024
-  iterations, lane block 8) for CFR and fictitious play; then the whole
-  kernel with the ablations and without a net.
+  epilogue of the hidden layers, the head) at the :data:`MLP_CELLS`:
+  1x4f and 2x3f for CFR and FP and 1x6f for FP, each at the lane block
+  the wrapper chooses (256x2 net with LayerNorm, random weights from a
+  seed, ``--batch`` lanes, 1024 iterations); then the whole kernel at
+  1x4f with the ablations and without a net.
 * ``mlp32``: the parts of the f32 MLP stage (the FMA products, the
   epilogue of the hidden layers, the head, the ring: its waits, barriers
   and copies, the weights then read from its first stage) at the
@@ -25,7 +26,7 @@ time means something.  Prints one JSON line per reading.
   grids, terminal values, level-1 values, root values with the running
   mean, the update) at the :data:`BODY_CELLS`: 1x4f at lane block 8
   without a net and with a bf16 net for CFR and FP, and 2x3f with a bf16
-  net for CFR (lane block 2) and FP (lane block 1).
+  net for CFR and FP at their chosen lane blocks.
 """
 
 from __future__ import annotations
@@ -55,6 +56,15 @@ VARIANTS = {
                      "        continue;\n        const float* bias = f32 + 3 * k * NH;")],
     "no head": [("for (int nt = 0; nt < mlp_hn(p.H) / 8; ++nt) {",
                  "for (int nt = 0; nt < 0; ++nt) {")],
+}
+# name: (game (dice, faces), CFR); each at the lane block the wrapper
+# chooses.
+MLP_CELLS = {
+    "1x4 cfr": ((1, 4), True),
+    "1x4 fp": ((1, 4), False),
+    "2x3 cfr": ((2, 3), True),
+    "2x3 fp": ((2, 3), False),
+    "1x6 fp": ((1, 6), False),
 }
 
 # The f32 MLP's parts.  "no ring": every slab is read from the first stage
@@ -98,13 +108,14 @@ BODY_VARIANTS = {
                   ("const bool store = live && root_is_trav;",
                    "const bool store = false;")],
 }
-# name: (game (dice, faces), CFR, bf16 net, lane block)
+# name: (game (dice, faces), CFR, bf16 net, lane block; None: the chosen
+# one)
 BODY_CELLS = {
     "1x4 no net": ((1, 4), True, False, 8),
     "1x4 cfr bf16": ((1, 4), True, True, 8),
     "1x4 fp bf16": ((1, 4), False, True, 8),
-    "2x3 cfr bf16": ((2, 3), True, True, 2),
-    "2x3 fp bf16": ((2, 3), False, True, 1),
+    "2x3 cfr bf16": ((2, 3), True, True, None),
+    "2x3 fp bf16": ((2, 3), False, True, None),
 }
 
 
@@ -187,15 +198,22 @@ def mlp_part(src: str, rounds: int, batch: int, dev) -> None:
     nets = {ln: CFVNet(game, 256, 2, ln,
                        generator=torch.Generator().manual_seed(5)).to(dev)
             for ln in (True, False)}
+    cells = {}
+    for cell, ((nd, nf), use_cfr) in MLP_CELLS.items():
+        g_ = LiarsDice(nd, nf)
+        net = CFVNet(g_, 256, 2, True,
+                     generator=torch.Generator().manual_seed(5)).to(dev)
+        args = solve_args(g_, random_states(g_, batch, dev), use_cfr, net)
+        cells[cell] = (args, grid2p.choose_lane_block(
+            *args[:2], net, torch.bfloat16, batch))
     libs = build_variants(src, VARIANTS, "mlp")
     for rnd in range(rounds):
         for name, lib in libs.items():
             with using(lib):
-                for use_cfr in (True, False):
-                    ms = time_launch(solve_args(game, states, use_cfr,
-                                                nets[True]))
+                for cell, (args, lane_block) in cells.items():
+                    ms = time_launch(args, reps=2, lane_block=lane_block)
                     print(json.dumps({"round": rnd, "variant": name,
-                                      "solver": "cfr" if use_cfr else "fp",
+                                      "cell": cell, "lane_block": lane_block,
                                       "ms": ms}), flush=True)
         with using(libs["whole"]):
             for label, net, knobs in (
@@ -275,8 +293,12 @@ def body_part(src: str, rounds: int, batch: int, dev) -> None:
         net = (CFVNet(game, 256, 2, True,
                       generator=torch.Generator().manual_seed(5)).to(dev)
                if has_net else None)
-        cells[cell] = (solve_args(game, random_states(game, batch, dev),
-                                  use_cfr, net), lane_block)
+        args = solve_args(game, random_states(game, batch, dev), use_cfr,
+                          net)
+        if lane_block is None:
+            lane_block = grid2p.choose_lane_block(*args[:2], net,
+                                                  torch.bfloat16, batch)
+        cells[cell] = (args, lane_block)
     for rnd in range(rounds):
         for name, lib in libs.items():
             with using(lib):

@@ -9,7 +9,8 @@ order of ``RlRunner::step``, ``sample_state_to_leaf`` and
 ``sample_state_single`` (recursive_solving.cc:160-275).  The training
 examples it emits (queries and counterfactual values) then replicate the
 reference's stream.  Sequential by construction: it exists to check
-parity, and runs on the CPU unless given another ``device``.
+parity.  It runs on the card unless given another ``device`` (the
+tests pass ``"cpu"``).
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ class ReplicatedExample:
 
 def replicate_episodes(cfg: RecursiveSolvingParams, seed: int,
                        episodes: int, value_fn=None,
-                       device="cpu") -> list[ReplicatedExample]:
+                       device="cuda") -> list[ReplicatedExample]:
     """Run ``episodes`` reference-equivalent self-play episodes from
     ``std::mt19937(seed)`` and return their training examples in push
     order.  ``value_fn`` defaults to zero leaf values."""

@@ -330,14 +330,17 @@ def pack_f32_rows(w: torch.Tensor) -> torch.Tensor:
 
 def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
                 n_hidden: int, n_layers: int, bf16: bool,
-                groups: int = 1) -> dict:
+                groups: int = 1, optimistic: bool = False) -> dict:
     """Bytes of a block's shared memory by part, as the kernel's
     ``make_layout()`` lays it out (the wrapper holds the two equal on the
     card): ``mlp`` (with a net: the weights kept for the launch and their
     barrier; bf16 the packed MLP block, f32 :func:`mlp32_words`),
     ``tables`` (pair tables and payoff), ``lanes`` (the solver state of
-    all lanes), ``rows`` (f32: each warp's :data:`WARP_ROWS` activation
-    rows), ``ring`` (f32 with hidden layers to stream: each group's
+    all lanes: FP keeps its last best response only when ``optimistic``;
+    with a net the leaf values share the staging rows and the level-1
+    values the second ones), ``rows`` (f32: each warp's
+    :data:`WARP_ROWS` activation rows), ``ring`` (f32 with hidden layers
+    to stream: each group's
     :data:`RING_STAGES` stages of :data:`RING_K` weight rows, their
     barriers and counts) and ``total``.  ``n_layers`` 0: no net.
     ``mlp_chunks`` does not change it."""
@@ -354,10 +357,13 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
         mlp = words(mlp32_words(game, n_hidden), 2)
     tables = words(P, P, A * A, A * H * H)
     LB = lane_block // groups
-    state = [LB, LB, LB, LB * A, LB * 2 * H, LB * H * H, LB * H * A,
-             LB * H * A, LB * A * H * A, LB * A * H * A, LB * 2 * H, LB * H,
-             LB * A * H, LB * A * H, LB * H, P * LB * H, P * LB * H, P * LB,
-             P * LB * H, LB * A * H]
+    last = 1 if use_cfr or optimistic else 0
+    state = [LB, LB, LB, LB * A, LB * 2 * H, LB * H * H, last * LB * H * A,
+             LB * H * A, last * LB * A * H * A, LB * A * H * A, LB * 2 * H,
+             LB * H, LB * A * H, LB * A * H, LB * H, P * LB * H, P * LB * H,
+             P * LB]
+    if not net:  # leaf values and level-1 values in rows of their own
+        state += [P * LB * H, LB * A * H]
     if not use_cfr:  # the average policy
         state += [LB * H * A, LB * A * H * A]
     lanes = words(*state)
@@ -390,6 +396,29 @@ def default_mlp_chunks(n_pairs: int, lane_block: int, groups: int,
         return -(-n_pairs // per) * -(-(-(-per * lanes // tile)) // tiles)
 
     return min(range(1, n_pairs + 1), key=lambda c: (turns(c), c))
+
+
+def deal_rows(rows: int, warpgroups: int = WARPGROUPS) -> list[list[tuple]]:
+    """How the tensor-core MLP deals a chunk's ``rows`` query rows, as
+    the kernel's loop over turns does: per turn, ``(warpgroup, warp,
+    first row, real rows)`` of every warp with a real row.  A turn is a 64-row tile for each of ``warpgroups``; its
+    rows go to the warps in groups of 16, group ``j`` to warp ``w`` of
+    warpgroup ``g`` with ``j = w + 4 (g ^ (w & 1))`` (one warpgroup: ``j
+    = w``), so that the first groups of a turn reach the four schedulers
+    (warp ``w``) in turn.  A warp whose 16 rows are all past the end does
+    no epilogue and no head, and a warpgroup without a real row no
+    products."""
+    turns = []
+    for t0 in range(0, rows, warpgroups * MMA_ROWS):
+        live = []
+        for g in range(warpgroups):
+            for w in range(4):
+                j = w + 4 * (g ^ (w & 1)) if warpgroups == 2 else w
+                first = t0 + 16 * j
+                if first < rows:
+                    live.append((g, w, first, min(16, rows - first)))
+        turns.append(live)
+    return turns
 
 
 def effective_interleave(params: SubgameSolvingParams, has_net: bool,
@@ -549,7 +578,7 @@ def kernel_plan(game: LiarsDice, params: SubgameSolvingParams,
         mlp_chunks = default_mlp_chunks(len(pseudo_leaf_pairs(game)),
                                         lane_block, groups, mma)
     need = smem_layout(game, lane_block, params.use_cfr, n_hidden, n_layers,
-                       bf16, groups)["total"]
+                       bf16, groups, params.optimistic)["total"]
     if need > SMEM_LIMIT:
         more = " or fewer hidden layers" if mma else ""
         raise ValueError(
@@ -605,11 +634,12 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     CPU inputs take :func:`solve_reference`.  Adds one per kernel launch
     to ``solve.launches`` and to ``solve.launches_by_kernel`` under
     :func:`kernel_name`; while ``solve.events`` is a list, appends a pair
-    of CUDA events around each launch.  With bf16 operands and a net the
-    kernel runs the MLP on the tensor cores from the block that
+    of CUDA events around each launch; keeps the launch's lane block in
+    ``solve.last_lane_block``.  With bf16 operands and a net the kernel
+    runs the MLP on the tensor cores from the block that
     :func:`pack_mlp_weights` lays out.  Options whose layout does not fit
     a block's shared memory raise (:func:`kernel_plan`) before anything is
-    built or launched."""
+    built or launched; a launch the card refuses raises."""
     dev = beliefs.device
     if dev.type == "cpu":
         return solve_reference(game, params, bids, players, beliefs, t_stop,

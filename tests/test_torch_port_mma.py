@@ -213,19 +213,24 @@ def test_smem_reckoning_at_the_default_lane_block():
     """1x4f, 256x2 net, lane block 8, bf16: the weights 143,360 B as
     stored before (bf16, first layer padded to 20 rows) and 151,552 B
     padded for the instructions (32 rows, head 8 columns), their f32 parameters 6,176
-    B, the barrier 16 B, CTA tables 1,136 B, lane state 4,976 B a lane
-    (CFR) and 6,416 B (FP), no activations staged; all fit."""
+    B, the barrier 16 B, CTA tables 1,136 B, lane state 4,384 B a lane
+    for CFR and FP alike (4,976 B and 6,416 B before the leaf and level-1
+    values shared the staging rows and FP dropped its last response, which
+    only the optimistic variant reads), no activations staged; all fit."""
     shapes = grid2p.mlp_block_shapes(GAME, 256, 2)
     assert sum(2 * n * k for n, k in shapes) == 151552
     qpad = 20  # the f32 kernel's padding of the query size 19 to 4
     assert 2 * (qpad * 256 + 256 * 256 + 256 * 4) == 143360
     assert grid2p.mlp_block_bytes(GAME, 256, 2) == 151552 + 6176
-    for use_cfr, per_lane, total in ((True, 4976, 198688),
-                                     (False, 6416, 210208)):
+    for use_cfr, per_lane, total in ((True, 4384, 193952),
+                                     (False, 4384, 193952)):
         got = grid2p.smem_layout(GAME, 8, use_cfr, 256, 2, True)
         assert got == dict(mlp=151552 + 6176 + 16, tables=1136,
                            lanes=8 * per_lane, rows=0, ring=0, total=total)
         assert total <= grid2p.SMEM_LIMIT
+    # The optimistic FP keeps its last response: 1,440 B a lane more.
+    assert grid2p.smem_layout(GAME, 8, False, 256, 2, True,
+                              optimistic=True)["lanes"] == 8 * (4384 + 1440)
     # grid2_cfr_il2: the same bytes, the lanes in two groups.
     assert grid2p.smem_layout(GAME, 8, True, 256, 2, True, groups=2) == \
         grid2p.smem_layout(GAME, 8, True, 256, 2, True)
@@ -233,18 +238,19 @@ def test_smem_reckoning_at_the_default_lane_block():
 
 @pytest.mark.parametrize(
     "game,lane_block,use_cfr,bf16,groups,total",
-    # The kernel's own figures (its grid2_cfr_smem_bytes on the card,
-    # PERF.md): f32 at every game of eval_all's defaults at the chosen lane
-    # block, CFR and FP, at 1x4f with two groups and at lane blocks 16 and
-    # 24, and bf16 at lane blocks 12 and 16.
-    [((1, 4), 8, True, False, 1, 159776), ((1, 4), 8, False, False, 1, 171296),
-     ((1, 4), 8, True, False, 2, 192576), ((1, 4), 16, False, False, 1, 222624),
-     ((1, 4), 24, False, False, 1, 273952),
-     ((1, 5), 8, True, False, 1, 197680), ((1, 5), 8, False, False, 1, 218800),
-     ((1, 6), 4, True, False, 1, 190288), ((1, 6), 4, False, False, 1, 207760),
-     ((2, 3), 4, True, False, 1, 230688), ((2, 3), 2, False, False, 1, 198912),
-     ((1, 4), 12, True, True, 1, 218592), ((1, 4), 12, False, True, 1, 235872),
-     ((1, 4), 16, True, True, 1, 238496)])
+    # The kernel's own figures (its grid2_cfr_smem_bytes, which solve holds
+    # equal to smem_layout before every launch on the card): f32 at every
+    # game of eval_all's defaults at lane blocks the wrapper has chosen,
+    # CFR and FP, at 1x4f with two groups and at lane blocks 16 and 24,
+    # and bf16 at lane blocks 12 and 16.
+    [((1, 4), 8, True, False, 1, 155040), ((1, 4), 8, False, False, 1, 155040),
+     ((1, 4), 8, True, False, 2, 187840), ((1, 4), 16, False, False, 1, 190112),
+     ((1, 4), 24, False, False, 1, 225184),
+     ((1, 5), 8, True, False, 1, 188720), ((1, 5), 8, False, False, 1, 188720),
+     ((1, 6), 4, True, False, 1, 182704), ((1, 6), 4, False, False, 1, 182704),
+     ((2, 3), 4, True, False, 1, 219312), ((2, 3), 2, False, False, 1, 180096),
+     ((1, 4), 12, True, True, 1, 211488), ((1, 4), 12, False, True, 1, 211488),
+     ((1, 4), 16, True, True, 1, 229024)])
 def test_smem_reckoning_matches_the_kernel(game, lane_block, use_cfr, bf16,
                                            groups, total):
     got = grid2p.smem_layout(LiarsDice(*game), lane_block, use_cfr, 256, 2,
@@ -285,10 +291,10 @@ def test_f32_layout_by_game(dice, faces, use_cfr):
 @pytest.mark.parametrize(
     "kw,match",
     [(dict(dtype=torch.bfloat16, n_layers=3), "shared memory"),
-     (dict(dtype=torch.bfloat16, use_cfr=False, lane_block=12),
+     (dict(dtype=torch.bfloat16, use_cfr=False, lane_block=32),
       "shared memory"),
-     (dict(dtype=torch.bfloat16, lane_block=16), "shared memory"),
-     (dict(dtype=torch.float32, use_cfr=False, lane_block=24),
+     (dict(dtype=torch.bfloat16, lane_block=32), "shared memory"),
+     (dict(dtype=torch.float32, use_cfr=False, lane_block=32),
       "shared memory"),
      (dict(dtype=torch.float16), "float32 or bfloat16"),
      (dict(dtype=torch.bfloat16, n_hidden=128), "width")])
@@ -306,8 +312,8 @@ def test_plan_raises_before_any_launch(kw, match):
 
 
 @pytest.mark.parametrize("use_cfr,interleave,groups,smem",
-                         [(True, 1, 1, 198688), (False, 1, 1, 210208),
-                          (True, 2, 2, 198688), (False, 2, 1, 210208)])
+                         [(True, 1, 1, 193952), (False, 1, 1, 193952),
+                          (True, 2, 2, 193952), (False, 2, 1, 193952)])
 def test_plan_at_the_main_path(use_cfr, interleave, groups, smem):
     """The main path's launch: lane block 8, bf16, one group of pairs (the
     least row padding), fits; interleave=2 takes the two-group kernel for
@@ -394,8 +400,8 @@ def test_breakdown_needs_the_card():
 
 # The largest lane block of grid2p.LANE_BLOCKS that fits a 256x2 net, by
 # game: bf16 CFR, bf16 FP, f32 CFR, f32 FP.
-CHOSEN_LANE_BLOCK = {(1, 4): (8, 8, 8, 8), (1, 5): (4, 4, 8, 8),
-                     (1, 6): (4, 2, 4, 4), (2, 3): (2, 1, 4, 2)}
+CHOSEN_LANE_BLOCK = {(1, 4): (8, 8, 8, 8), (1, 5): (8, 8, 8, 8),
+                     (1, 6): (4, 4, 4, 4), (2, 3): (2, 2, 4, 4)}
 
 
 @pytest.mark.parametrize("batch", [1024, 2048, 256])

@@ -51,7 +51,8 @@ def test_episode_replication(fixture, bitexact):
             num_iters=g["num_iters"], max_depth=2, linear_update=True,
             use_cfr=bool(g["use_cfr"])),
         random_action_prob=0.25, sample_leaf=bool(g["sample_leaf"]))
-    mine = replicate_episodes(cfg, seed=g["seed"], episodes=g["episodes"])
+    mine = replicate_episodes(cfg, seed=g["seed"], episodes=g["episodes"],
+                              device="cpu")
     assert len(mine) == len(g["queries"]) == len(g["values"])
     for i, (ex, q, v) in enumerate(zip(mine, g["queries"], g["values"])):
         q, v = np.array(q, np.float32), np.array(v, np.float32)
