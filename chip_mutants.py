@@ -31,6 +31,7 @@ FP_PHASES = "fp-checks,exploit-check,fp-selfplay"
 CFR_PHASES = "exploit-check"
 KNOB_PHASES = "knob-checks"
 CHECK_PHASES = "cfr-checks,fp-checks"
+WIDTH_PHASES = "widths"
 # What the CUDA runtime prints when the card stops a faulty kernel.
 KERNEL_FAULTS = ("illegal memory access", "illegal instruction",
                  "misaligned address", "unspecified launch failure",
@@ -136,8 +137,8 @@ MUTANTS = {
     # so a shift of those columns alone changes nothing there).  The bf16
     # kernels do not run this code.
     "ring-no-wait": (
-        "    mbar_wait(g.full + s, parity);\n    f(g.stages",
-        "    f(g.stages",
+        "    mbar_wait(g.full + s, parity);\n    f(reinterpret_cast",
+        "    f(reinterpret_cast",
         CHECK_PHASES),
     "epilogue-column-shift": (
         "        const float b = __ldg(bias + lane + 32 * i);",
@@ -157,6 +158,21 @@ MUTANTS = {
         "            const float g = __ldg(scale + (j + 1) % NH), "
         "b = __ldg(lbias + j);",
         CHECK_PHASES),
+    # The bf16 ring: every warp reads a stage without waiting on its full
+    # barrier (before the slab's copy may have landed); the widths phase's
+    # bf16 nets of 3 hidden layers and more stream through it.
+    "ring16-no-wait": (
+        "    mbar_wait(g.full + s, parity);\n    __syncwarp();\n"
+        "    f(smem_addr",
+        "    __syncwarp();\n    f(smem_addr",
+        WIDTH_PHASES),
+    # The bf16 MLP's LayerNorm divides its sums by the padded width, not
+    # the net's own (the same at width 256; the widths phase's narrower
+    # nets with LayerNorm show it).
+    "ln-pad-width": (
+        "const float inv_n = p.inv_nh;  // 1 / the net's own width",
+        "const float inv_n = 1.0f / NH;  // 1 / the net's own width",
+        WIDTH_PHASES),
 }
 
 

@@ -9,11 +9,12 @@ an H100, ``sm_90a``).  It
 1. prints the card's name and power limit and builds the fused depth-2
    solve (``rebel_tpu_torch/kernels/grid2_cfr.cu``: the CFR kernel
    ``grid2_cfr``, the fictitious-play kernel ``grid2_fp`` and the
-   two-group CFR kernel ``grid2_cfr_il2``, each in f32 and with bf16
-   operands) with ``nvcc``; prints each instantiation's registers, spills
-   and shared memory at the main path's lane block, and the tensor-core
-   instructions (``HGMMA``, ``HMMA``) in its machine code: ``HGMMA`` in
-   every bf16 instantiation, neither in an f32 one;
+   two-group CFR kernel ``grid2_cfr_il2``, each in f32, with bf16
+   operands and with bf16 operands on the bf16 ring: nine
+   instantiations, every net at the padded width 256) with ``nvcc``; prints each instantiation's registers, spills
+   and shared memory at lane block 8, and the tensor-core instructions
+   (``HGMMA``, ``HMMA``) in its machine code: ``HGMMA`` in every bf16
+   instantiation, neither in an f32 one;
 2. ``cfr-checks``: holds ``grid2_cfr`` against its plain PyTorch version
    (``solving.grid2p.solve_reference``) on the card at 1x4f, B=256, with
    fresh nets whose LayerNorm scale and bias are drawn from a seed too:
@@ -81,7 +82,8 @@ an H100, ``sm_90a``).  It
    control; FP with at most 2% flip lanes, as below), and times one
    launch of 1024 lanes beside
    the bound of the game's MLP FLOP; then holds pairs of lane blocks to
-   the same bits over 1024 iterations;
+   the same bits over 1024 iterations, among them the bf16 ring (2x3f at
+   lane block 4, 1x6f at 8) against the resident weights (2, 4);
 13. ``games-exploit``: at 2x3f (the smallest lane blocks and H = 9), over
    the path's 1024 subgame iterations: CFR and FP in bf16 by the
    statistics of the 1x4f path checks against a plain(card)-vs-plain(cpu)
@@ -108,14 +110,32 @@ an H100, ``sm_90a``).  It
    gradient against one process's on both batches, the nets equal across
    the ranks; (d) the ``fast`` engine with the hands split over two gloo
    ranks (1x4f, f64) against the unsplit engine;
-17. prints the whole run's seconds, one ``{"kernels": [...]}`` line with
-   the three kernels (each with its lane block at the main path's shapes
-   and, under ``modes``, the larger games' timed launches with theirs)
-   and ``{"ok": true, "device": {...}}`` as the last line.
+17. ``widths``: nets of other widths and depths (WIDTH_CASES: widths 32,
+   100, 128 and 256, 1 to 12 hidden layers, bf16 and f32, CFR and FP, with
+   and without LayerNorm, one with ``interleave=2``; bf16 nets of 3 hidden
+   layers and more on the bf16 ring), each from a seed, against the plain
+   version on the card: over 4 iterations to the absolute limits (not bf16
+   CFR deeper than 3 hidden layers), over 64 by the statistics against a
+   control (CFR: plain(card) vs plain(cpu), chaotic lanes counted; FP:
+   the plain version with the MLP's sums in another correct order, bf16
+   the tensor cores' chained k steps, f32 exact); the
+   ring against the resident weights bit for bit on nets of 3 to 12
+   hidden layers (RING_BITS); then the new paths' timed launches (a 256x3
+   net on the ring at 1x4f, narrow nets, 2x3f on the ring at lane block 4
+   beside the resident weights at 2);
+18. ``run-entry-widths``: the run entry with the round-5 overrides and
+   ``model.kwargs.n_layers=3`` (generation through the bf16 ring, the
+   exploit evaluation at epoch 0 through the f32 kernel, both counted),
+   and the README's quick run at ``model.kwargs.n_hidden=32`` on the card;
+19. prints the whole run's seconds, one ``{"kernels": [...]}`` line with
+   the three kernels (each with its lane block at the main path's shapes,
+   its instantiations, and, under ``modes``, the larger games' and the new
+   paths' timed launches with theirs) and ``{"ok": true, "device":
+   {...}}`` as the last line.
 
 The launch counts of the kernels are set to 0 just before each of the
-paths (4, 6 for each net, 8, 10, each run of 11, 14, 16a) and read just
-after; a kernel that a path should run and did not fails the run.  In 11,
+paths (4, 6 for each net, 8, 10, each run of 11, 14, 16a, 18) and read
+just after; a kernel that a path should run and did not fails the run.  In 11,
 ``grid2_cfr`` must run in generation (bf16) and in the evaluation (f32).
 In 16b each rank counts its own launches, which the run entry writes
 into ``result.json`` (``kernel_launches``, one entry a rank); a rank that
@@ -133,6 +153,7 @@ are random, made from seeds.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import copy
 import json
 import math
@@ -284,19 +305,102 @@ MOST_LANES_TOL = {"f32": 1e-5, "bf16": 1e-4}
 PRECEDENCE_FACTOR = 4
 KNOB_CHUNKS = {8: (2, 4, 7, 28), 2: (1, 2), 1: (28,)}
 
-# The instantiations of grid2_kernel<WT, FP, NG> by their mangled
-# names' template arguments (FP, NG), and the MLP's operands WT (the f32
-# ones also run without a net).
+# The instantiations of grid2_kernel<WT, FP, NG, RING16> by their mangled
+# names' template arguments (FP, NG), and the MLP's operands WT with the
+# bf16 ring or not (the f32 ones also run without a net): nine.
 INSTANTIATION = re.compile(
-    r"grid2_kernelI(13__nv_bfloat16|f)Lb([01])ELi([12])E")
+    r"grid2_kernelI(13__nv_bfloat16|f)Lb([01])ELi([12])ELb([01])E")
 KERNEL_OF = {("0", "1"): "grid2_cfr", ("1", "1"): "grid2_fp",
              ("0", "2"): "grid2_cfr_il2"}
-OPERANDS_OF = {"13__nv_bfloat16": "bf16", "f": "f32"}
-INSTANTIATIONS = 6
+OPERANDS_OF = {("13__nv_bfloat16", "0"): "bf16",
+               ("13__nv_bfloat16", "1"): "bf16 ring", ("f", "0"): "f32"}
+INSTANTIATIONS = 9
 
 PHASES = ("cfr-checks", "fp-checks", "cfr-selfplay", "cfr-shapes", "eval",
           "exploit-check", "fp-selfplay", "knob-checks", "bench", "run-entry",
-          "games", "games-exploit", "run-entry-2x3", "fast-check", "spmd")
+          "games", "games-exploit", "run-entry-2x3", "fast-check", "spmd",
+          "widths", "run-entry-widths")
+
+# The nets of every width and depth the kernel takes (phase 17), each on
+# 1x4f against the plain version with a fresh net from a seed (LayerNorm
+# drawn from the seed too where it has one): (width, hidden layers,
+# solver, MLP operands, LayerNorm, interleave).  Every net runs at the
+# padded width 256, the narrower ones with padding columns; bf16 nets of
+# 3 hidden layers or more stream them through the bf16 ring, and the
+# interleaved case runs the ring in both groups of grid2_cfr_il2.  bf16
+# CFR deeper than 3 hidden layers (the last two cases) is held over
+# LONG_ITERS only: two correct plain versions (f32 sums and exact sums)
+# already differ by more than TOL_BF16 within CHECK_ITERS iterations on
+# such nets (`chip_studies.py sum-order --fresh`, PERF.md).  A bf16 CFR
+# net without LayerNorm keeps values so small that rounding them to bf16
+# moves nothing the 4-iteration limit sees (its precision control cannot
+# separate), so the net without LayerNorm in bf16 is FP's.
+WIDTH_CASES = (
+    (32, 1, "cfr", "bf16", True, 1), (32, 3, "cfr", "bf16", True, 1),
+    (32, 8, "fp", "bf16", True, 1), (100, 1, "fp", "bf16", True, 1),
+    (100, 3, "cfr", "bf16", True, 1), (100, 8, "fp", "bf16", False, 1),
+    (128, 3, "fp", "bf16", True, 1), (128, 8, "fp", "bf16", True, 1),
+    (256, 1, "fp", "bf16", True, 1), (256, 3, "cfr", "bf16", True, 1),
+    (256, 8, "fp", "bf16", True, 1), (256, 3, "cfr", "bf16", True, 2),
+    (32, 1, "fp", "f32", True, 1), (32, 8, "cfr", "f32", True, 1),
+    (100, 3, "fp", "f32", False, 1), (100, 8, "cfr", "f32", True, 1),
+    (128, 1, "cfr", "f32", True, 1), (128, 3, "fp", "f32", True, 1),
+    (256, 3, "cfr", "f32", True, 1), (256, 8, "fp", "f32", True, 1),
+    (256, 12, "cfr", "f32", True, 1),
+    (128, 8, "cfr", "bf16", True, 1), (256, 8, "cfr", "bf16", True, 1))
+# Lanes of the checks.  Over LONG_ITERS, FP's control is the plain
+# version on the card against itself with the MLP's sums in another
+# correct order, on the same lanes (WIDTH_CONTROL_SUMS, by operands: the
+# orders of `chip_studies.py sum-order`).  A bf16 rounding of an
+# activation turns on the last bits of its sum, and on deep nets such a
+# turn flips a best response at a near-tie: two correct plain versions,
+# with f32 sums and with the tensor cores' chained 16-wide k steps, flip
+# the snapshots of 2.0-12.9% of the lanes of the deep FP nets over 64
+# iterations (PERF.md), which a plain version on the card and on the
+# CPU, both with f32 sums, do not show.  CFR's control is the plain
+# version on the CPU on the first CONTROL_LANES lanes, as in cfr-checks:
+# its chaotic lanes amplify the body's f32 rounding too, which a change
+# of the MLP's sums alone leaves as it is.  Its mean over 256 lanes
+# follows its most chaotic lane or two (32x3 in bf16: lane 33, 1.3e-2
+# apart, makes the kernel's mean 2.5e-05), and those lanes are the ones
+# where correct versions part as well (lane 33 in three of them;
+# PERF.md): a lane past the rvm_max limit counts as chaotic, at most
+# TIE_SHARE of the lanes, and the statistics take the others.
+WIDTH_LANES = 256
+WIDTH_CONTROL_SUMS = {"bf16": "tc_chained", "f32": "f64"}
+# The bf16 ring against the resident weights, bit for bit over ITERS
+# iterations on B lanes at 1x4f: (width, hidden layers, solver,
+# interleave).  A net of that many hidden layers has no resident layout,
+# so it is held to a 2-layer net that computes the same bits
+# (`ring_bits_nets`): without LayerNorm and with the activation ablated
+# ("nogelu"), its middle hidden layers diagonal with entries +-2^e, so
+# that each of them maps an activation exactly to a scaled one and the
+# last hidden matrix takes the scales in its columns.  A slab taken from
+# the wrong layer, the wrong k rows or before its copy lands gives other
+# bits.
+RING_BITS = ((256, 3, "cfr", 1), (256, 8, "fp", 1), (100, 5, "cfr", 2),
+             (256, 12, "cfr", 1))
+# The new paths' timed launches at the path's shapes (1024 lanes, 1024
+# iterations, the lane block chosen, or the one named): (game, width,
+# hidden layers, solver, lane block or None, MLP operands); at 2x3f the
+# ring (lane block 4) beside the resident weights (2) on the same net.
+WIDTH_TIMED = (((1, 4), 256, 3, "cfr", None, "bf16"),
+               ((1, 4), 32, 2, "cfr", None, "bf16"),
+               ((1, 4), 100, 2, "fp", None, "bf16"),
+               ((1, 4), 32, 2, "cfr", None, "f32"),
+               ((2, 3), 256, 2, "cfr", 4, "bf16"),
+               ((2, 3), 256, 2, "cfr", 2, "bf16"),
+               ((2, 3), 256, 2, "fp", 4, "bf16"),
+               ((2, 3), 256, 2, "fp", 2, "bf16"))
+# The run entry with nets other than 256x2 (phase 18): the round-5 run at
+# 3 hidden layers (generation through the bf16 ring, the exploit
+# evaluation through the f32 kernel), and the README's quick run at width
+# 32 without --device cpu.
+QUICK_RUN_ARGS = ["max_epochs=2", "selfplay.batch=16",
+                  "data.train_epoch_size=256", "data.train_batch_size=32",
+                  "env.num_faces=3", "env.subgame_params.num_iters=16",
+                  "model.kwargs.n_hidden=32", "replay.capacity=4096",
+                  "exploit_every=1", "eval_num_repeats=2"]
 
 # The larger games (phases 12-14): the repo's trained 256x2 net of each
 # game and solver.  Their checks run at GAME_LANES lanes, the controls of
@@ -339,7 +443,12 @@ LANE_BLOCK_PAIRS = (((2, 3), "cfr", "bf16", (1, 2)),
                     ((2, 3), "fp", "f32", (1, 2)),
                     ((2, 3), "cfr", "f32", (1, 4)),
                     ((2, 3), "fp", "bf16", (1, 2)),
-                    ((1, 6), "cfr", "bf16", (2, 4)))
+                    ((1, 6), "cfr", "bf16", (2, 4)),
+                    # the bf16 ring against the resident weights
+                    ((2, 3), "cfr", "bf16", (2, 4)),
+                    ((2, 3), "fp", "bf16", (2, 4)),
+                    ((1, 6), "cfr", "bf16", (4, 8)),
+                    ((1, 6), "fp", "bf16", (4, 8)))
 # The fast engine's check (phase 15) over each solver's subgame
 # iterations: CFR's f32 iterates are chaotic, so that two correct f32
 # engines read a 16-repeat evaluation 10.7% apart over 64 iterations and
@@ -370,6 +479,8 @@ ROUND5 = ["selfplay.engine=pallas", "selfplay.net_compute_dtype=bf16",
           "env.subgame_params.use_cfr=true"]
 RUN_ENTRY_ARGS = ROUND5 + ["checkpoint_every=1", "exploit_every=2",
                            "eval_num_repeats=8", "stall_timeout_s=600"]
+RUN_ENTRY_DEEP_ARGS = RUN_ENTRY_ARGS + ["model.kwargs.n_layers=3",
+                                        "max_epochs=2"]
 
 # The SPMD path (phase 16), conf/liars_sp.yaml with the round-5
 # overrides at full width.  (a) Trainer.run_spmd in this process at world
@@ -413,15 +524,52 @@ def instantiation(mangled: str) -> tuple[str, str] | None:
     m = INSTANTIATION.search(mangled)
     if m is None:
         return None
-    return KERNEL_OF[m[2], m[3]], OPERANDS_OF[m[1]]
+    return KERNEL_OF[m[2], m[3]], OPERANDS_OF[m[1], m[4]]
 
 
-def build_report(build, grid2p, game, failures: list) -> None:
+def ring_bits_nets(game, width: int, layers: int, seed: int):
+    """``(deep, base)``: two nets without LayerNorm from ``seed``, of
+    ``layers`` and 2 hidden layers of ``width``, bf16 weights, that give
+    the same bits with the activation ablated (RING_BITS).  ``deep``'s
+    middle hidden layers are diagonal, each entry +-2^e (e in -1..1) and
+    its bias 0, so each maps a bf16 activation exactly onto a scaled one;
+    ``base`` has ``deep``'s first layer and head, and its last hidden
+    matrix with each column scaled by the product of the diagonals, the
+    same products summed in the same order."""
+    import torch
+
+    from rebel_tpu_torch.nets.cfv_net import CFVNet
+
+    g = torch.Generator().manual_seed(seed)
+    deep = CFVNet(game, width, layers, False, generator=g)
+    base = CFVNet(game, width, 2, False, generator=g)
+    hidden = [lin for lin, _ in deep.hidden_layers()]
+    with torch.no_grad():
+        for lin in hidden + [deep.output]:
+            lin.weight.copy_(lin.weight.to(torch.bfloat16).float())
+        scale = torch.ones(width)
+        for lin in hidden[1:-1]:
+            sign = 1 - 2 * torch.randint(0, 2, (width,), generator=g)
+            d = sign * 2.0 ** torch.randint(-1, 2, (width,), generator=g)
+            lin.weight.copy_(torch.diag(d))
+            lin.bias.zero_()
+            scale = scale * d
+        first, last = (lin for lin, _ in base.hidden_layers())
+        for dst, src in ((first, hidden[0]), (base.output, deep.output)):
+            dst.weight.copy_(src.weight)
+            dst.bias.copy_(src.bias)
+        last.weight.copy_(hidden[-1].weight * scale)
+        last.bias.copy_(hidden[-1].bias)
+    return deep, base
+
+
+def build_report(build, grid2p, game, failures: list) -> list[str]:
     """Per instantiation: registers and spills (``-Xptxas -v``), shared
-    memory at the main path's lane block of 8 with a 256x2 net and the
-    default ``mlp_chunks`` (the wrapper's reckoning, which it holds equal
-    to the kernel's), and the tensor-core instructions in its machine
-    code."""
+    memory at the main path's lane block of 8 with a 256x2 net (with the
+    ring 256x3) and the default ``mlp_chunks`` (the wrapper's reckoning,
+    which it holds equal to the kernel's), and the tensor-core
+    instructions in its machine code.  Returns the instantiations found,
+    as "kernel operands"."""
     props: dict = {}
     name = None
     for line in build.build_log("grid2_cfr").splitlines():
@@ -459,9 +607,10 @@ def build_report(build, grid2p, game, failures: list) -> None:
     params = {"grid2_fp": False}
     for (kernel, operands), got in sorted(props.items()):
         groups = 2 if kernel == "grid2_cfr_il2" else 1
+        ring = operands == "bf16 ring"
         smem = grid2p.smem_layout(
-            game, 8, params.get(kernel, True), 256, 2, operands == "bf16",
-            groups)["total"]
+            game, 8, params.get(kernel, True), 256, 3 if ring else 2,
+            operands != "f32", groups, ring=ring)["total"]
         print(f"  {kernel} {operands}: "
               f"{got.get('registers')} registers, spill stores "
               f"{got.get('spill_stores')} B, spill loads "
@@ -469,7 +618,7 @@ def build_report(build, grid2p, game, failures: list) -> None:
               f"block 8; HGMMA {got.get('HGMMA', 'not counted')}, HMMA "
               f"{got.get('HMMA', 'not counted')}")
         tensor = (got.get("HGMMA", 0), got.get("HMMA", 0))
-        if sass is not None and (tensor[0] == 0 if operands == "bf16"
+        if sass is not None and (tensor[0] == 0 if operands != "f32"
                                  else any(tensor)):
             failures.append(f"{kernel} {operands}: {got.get('HGMMA', 0)} "
                             f"HGMMA and {got.get('HMMA', 0)} HMMA "
@@ -477,6 +626,7 @@ def build_report(build, grid2p, game, failures: list) -> None:
     if len(props) != INSTANTIATIONS:
         failures.append(f"build: {len(props)} instantiations of grid2_kernel "
                         f"found, expected {INSTANTIATIONS}")
+    return [f"{kernel} {operands}" for kernel, operands in sorted(props)]
 
 
 def main() -> int:
@@ -561,14 +711,12 @@ def main() -> int:
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
-    build.load("grid2_cfr")
-    print(f"kernel build: grid2_cfr.cu ({', '.join(KERNELS)}) "
-          f"{build.build_seconds['grid2_cfr']:.1f} s")
+    # nvcc runs in a process of its own: meanwhile the CPU computes the
+    # controls of cfr-checks (phase 2), which need no kernel.
+    builder = concurrent.futures.ThreadPoolExecutor(1)
+    built = builder.submit(build.build, "grid2_cfr")
     game = LiarsDice(1, 4)
     A, H = game.num_actions, game.num_hands
-    build_report(build, grid2p, game, failures)
-
-    lap("build")
 
     def random_inputs(batch: int, num_iters: int, seed: int, g_=None):
         """Random roots (bids, players), Dirichlet(1) beliefs and stop
@@ -615,10 +763,11 @@ def main() -> int:
         """Kernel ``out`` vs plain ``ref`` on the card, limited by the
         control: plain ``ref_part`` (the same lanes as ``cpu``) vs the
         plain version on the CPU, ``factor`` times, or ``floor``.
-        ``keep``/``keep_part``: lanes counted.  ``flips`` (FP): the lanes
-        whose rvm differs by more than the rvm_max limit are flip lanes,
-        at most that share of the counted lanes, and the statistics are
-        taken over the others."""
+        ``keep``/``keep_part``: lanes counted.  ``flips``: the lanes whose
+        rvm differs by more than the rvm_max limit (FP: a flipped best
+        response; CFR: a chaotic lane) are flip lanes, at most that share
+        of the counted lanes, and the statistics are taken over the
+        others."""
         if keep is None:
             keep = torch.ones(out.rvm.shape[0], dtype=torch.bool)
         if keep_part is None:
@@ -717,48 +866,71 @@ def main() -> int:
         return SubgameSolvingParams(num_iters=num_iters, max_depth=2,
                                     use_cfr=False, **kw)
 
-    def fresh_net(layers, use_ln, seed, seeded_ln=False):
-        """A 256-wide net of ``layers`` hidden layers from ``seed``, on the
-        CPU and on the card.  ``seeded_ln``: LayerNorm's scale and bias
-        drawn from the seed too, U(0.5, 1.5) and U(-0.5, 0.5) per column,
-        not 1 and 0, so that a kernel that reads them off by a column
-        shows."""
+    def fresh_net(layers, use_ln, seed, seeded_ln=False, width=256):
+        """A 1x4f net of ``layers`` hidden layers of ``width`` from
+        ``seed``, on the CPU and on the card.  ``seeded_ln``: LayerNorm's
+        scale and bias drawn from the seed too, U(0.5, 1.5) and U(-0.5,
+        0.5) per column, not 1 and 0, so that a kernel that reads them off
+        by a column shows."""
         if not layers:
             return None, None
         g = torch.Generator().manual_seed(seed)
-        net = CFVNet(game, 256, layers, use_ln, generator=g)
+        net = CFVNet(game, width, layers, use_ln, generator=g)
         if seeded_ln:
             with torch.no_grad():
                 for _, ln in net.hidden_layers():
                     if ln is not None:
-                        ln.weight.copy_(0.5 + torch.rand(256, generator=g))
-                        ln.bias.copy_(torch.rand(256, generator=g) - 0.5)
+                        ln.weight.copy_(0.5 + torch.rand(width, generator=g))
+                        ln.bias.copy_(torch.rand(width, generator=g) - 0.5)
         return net, copy.deepcopy(net).to(dev)
 
     # ------------------------------------ 2. grid2_cfr vs plain version
+    dcfr = dict(linear_update=False, dcfr=True, dcfr_alpha=1.5,
+                dcfr_beta=0.5, dcfr_gamma=2.0)
+    dcfr_clamped = dict(linear_update=False, dcfr=True, dcfr_alpha=5.0,
+                        dcfr_beta=-5.0, dcfr_gamma=1.0)
+    # name, solver params, hidden layers (0: no net), LayerNorm, dtype
+    modes = [
+        ("f32_ln", {}, 2, True, torch.float32),
+        ("f32_noln", {}, 2, False, torch.float32),
+        ("nonet", {}, 0, True, torch.float32),
+        ("bf16_ln_fastgelu", {}, 2, True, torch.bfloat16),
+        ("f32_dcfr", dcfr, 2, True, torch.float32),
+        ("f32_dcfr_clamped", dcfr_clamped, 2, True, torch.float32),
+        ("f32_plain_cfr", dict(linear_update=False), 2, True,
+         torch.float32),
+        ("f32_1layer", {}, 1, True, torch.float32),
+        ("f32_3layers", {}, 3, True, torch.float32),
+    ]
+
+    def cfr_iters(layers):
+        return ((CHECK_ITERS, LONG_ITERS)
+                + ((NONET_ITERS,) if layers == 0 else ()))
+
+    # The plain version on the CPU for every mode's statistics, while the
+    # kernel builds.
+    cfr_controls = {}
     if "cfr-checks" in phases:
-        dcfr = dict(linear_update=False, dcfr=True, dcfr_alpha=1.5,
-                    dcfr_beta=0.5, dcfr_gamma=2.0)
-        dcfr_clamped = dict(linear_update=False, dcfr=True, dcfr_alpha=5.0,
-                            dcfr_beta=-5.0, dcfr_gamma=1.0)
-        # name, solver params, hidden layers (0: no net), LayerNorm, dtype
-        modes = [
-            ("f32_ln", {}, 2, True, torch.float32),
-            ("f32_noln", {}, 2, False, torch.float32),
-            ("nonet", {}, 0, True, torch.float32),
-            ("bf16_ln_fastgelu", {}, 2, True, torch.bfloat16),
-            ("f32_dcfr", dcfr, 2, True, torch.float32),
-            ("f32_dcfr_clamped", dcfr_clamped, 2, True, torch.float32),
-            ("f32_plain_cfr", dict(linear_update=False), 2, True,
-             torch.float32),
-            ("f32_1layer", {}, 1, True, torch.float32),
-            ("f32_3layers", {}, 3, True, torch.float32),
-        ]
+        for k, (name, kw, layers, use_ln, dtype) in enumerate(modes):
+            net = fresh_net(layers, use_ln, 10 + k, seeded_ln=True)[0]
+            for iters in cfr_iters(layers)[1:]:
+                inputs = random_inputs(256, iters, 20 + k)
+                cfr_controls[k, iters] = grid2p.solve_reference(
+                    game, cfr(iters, **kw), *[x.cpu() for x in inputs], net,
+                    dtype)
+    built.result()
+    builder.shutdown()
+    print(f"kernel build: grid2_cfr.cu ({', '.join(KERNELS)}): "
+          f"{build.build_seconds['grid2_cfr']:.1f} s (beside it, the CPU "
+          "controls of cfr-checks)")
+    instantiations = build_report(build, grid2p, game, failures)
+    lap("build")
+
+    if "cfr-checks" in phases:
         for k, (name, kw, layers, use_ln, dtype) in enumerate(modes):
             net, net_dev = fresh_net(layers, use_ln, 10 + k, seeded_ln=True)
             tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
-            for iters in ((CHECK_ITERS, LONG_ITERS)
-                          + ((NONET_ITERS,) if net is None else ())):
+            for iters in cfr_iters(layers):
                 inputs = random_inputs(256, iters, 20 + k)
                 args = (game, cfr(iters, **kw), *inputs, net_dev)
                 out = grid2p.solve(*args, dtype)
@@ -769,10 +941,7 @@ def main() -> int:
                     if dtype == torch.bfloat16:
                         precision_control(label, args, tol)
                     continue
-                cpu = grid2p.solve_reference(
-                    game, cfr(iters, **kw), *[x.cpu() for x in inputs], net,
-                    dtype)
-                long_check(label, out, ref, ref, cpu)
+                long_check(label, out, ref, ref, cfr_controls[k, iters])
         lap("cfr-checks")
 
     # ------------------------------------- 3. grid2_fp vs plain version
@@ -1334,6 +1503,8 @@ def main() -> int:
                       f"({knobs[0]} .. {knobs[-1]}): {got}")
         net3, net3_dev = fresh_net(3, True, 97)
         part = [x[:1020] for x in args[2:6]]  # a multiple of 12 lanes
+        # Three hidden layers in bf16 fit lane block 8 only with the bf16
+        # ring, and lane block 32 not even with it.
         for label, a, knobs, want in (
                 ("bf16 cfr lane_block 12", (game, args[1], *part, args[6]),
                  dict(lane_block=12), True),
@@ -1343,8 +1514,12 @@ def main() -> int:
                 ("bf16 fp lane_block 32", (game, fp(CHECK_ITERS), *args[2:6],
                                            args[6]), dict(lane_block=32),
                  False),
-                ("bf16 cfr 3 hidden layers", (*args[:6], net3_dev),
-                 dict(lane_block=8), False),
+                ("bf16 cfr 3 hidden layers lane_block 8", (*args[:6],
+                                                          net3_dev),
+                 dict(lane_block=8), True),
+                ("bf16 cfr 3 hidden layers lane_block 32", (*args[:6],
+                                                           net3_dev),
+                 dict(lane_block=32), False),
                 ("f32 cfr lane_block 16", args, dict(lane_block=16), True),
                 ("f32 fp lane_block 24", (game, fp(CHECK_ITERS), *(
                     x[:1008] for x in args[2:6]), args[6]),
@@ -1661,10 +1836,14 @@ def main() -> int:
                     *random_inputs(GAME_LANES, ITERS, 90, g_), net, dtype)
             a, b = (grid2p.solve(*args, lane_block=lb) for lb in blocks)
             ok = finite(a) and all(torch.equal(x, y) for x, y in zip(a, b))
+            how = ["bf16 ring" if grid2p.kernel_plan(
+                *args[:2], net, dtype, GAME_LANES, lb).ring else "resident"
+                for lb in blocks]
             print(f"check games {nd}x{nf} {solver} {dname}: B={GAME_LANES} "
-                  f"iters={ITERS}, lane block {blocks[0]} against "
-                  f"{blocks[1]}: bit-identical (max_abs_diff="
-                  f"{max_diff(a, b):.3e}) {'ok' if ok else 'MISS'}")
+                  f"iters={ITERS}, lane block {blocks[0]} ({how[0]}) "
+                  f"against {blocks[1]} ({how[1]}): bit-identical "
+                  f"(max_abs_diff={max_diff(a, b):.3e}) "
+                  f"{'ok' if ok else 'MISS'}")
             if not ok:
                 failures.append(f"games {nd}x{nf} {solver} {dname}: lane "
                                 f"blocks {blocks} differ")
@@ -2030,6 +2209,208 @@ def main() -> int:
             spmd_parity(pathlib.Path(tmp))
         lap("spmd")
 
+    # ----------------------------------- 17. nets of every width and depth
+    def widths() -> None:
+        """WIDTH_CASES against the plain version on the card: over
+        CHECK_ITERS iterations to the absolute limits of the 1x4f checks
+        (FP: tie lanes counted; not bf16 CFR deeper than 3 hidden
+        layers), over LONG_ITERS by the statistics against a control
+        (CFR: the plain version on the CPU on the first CONTROL_LANES
+        lanes, chaotic lanes counted; FP: the plain version with the
+        sums of WIDTH_CONTROL_SUMS on the same lanes, flip lanes
+        counted, as for the larger games); then RING_BITS and the
+        WIDTH_TIMED launches."""
+        import chip_studies
+
+        for k, (width, layers, solver, dname, use_ln, il) in enumerate(
+                WIDTH_CASES):
+            dtype = torch.bfloat16 if dname == "bf16" else torch.float32
+            bf16 = dtype == torch.bfloat16
+            make = cfr if solver == "cfr" else fp
+            net, net_dev = fresh_net(layers, use_ln, 200 + k, seeded_ln=True,
+                                     width=width)
+            lb = grid2p.choose_lane_block(game, make(CHECK_ITERS), net, dtype,
+                                          WIDTH_LANES, interleave=il)
+            plan = grid2p.kernel_plan(game, make(CHECK_ITERS), net, dtype,
+                                      WIDTH_LANES, lb, interleave=il)
+            kernel = grid2p.kernel_name(make(1), True, il)
+            name = (f"{width}x{layers} {solver} {dname}"
+                    f"{'' if use_ln else ' noln'}"
+                    f"{' interleave=2' if il == 2 else ''}")
+            print(f"widths {name}: {kernel} at lane block {lb}, "
+                  f"{'bf16 ring' if plan.ring else 'resident'}, shared "
+                  f"memory {plan.smem} B")
+            if solver == "cfr":
+                tol = TOL_BF16 if bf16 else TOL_F32
+            else:
+                tol = TOL_FP_BF16 if bf16 else TOL_FP_F32
+            short = not (solver == "cfr" and bf16 and layers > 3)
+            t0 = time.perf_counter()
+            for iters in (CHECK_ITERS, LONG_ITERS) if short else (LONG_ITERS,):
+                inputs = random_inputs(WIDTH_LANES, iters, 300 + k)
+                args = (game, make(iters), *inputs, net_dev)
+                before = grid2p.solve.launches_by_kernel[kernel]
+                out = grid2p.solve(*args, dtype, interleave=il)
+                if grid2p.solve.launches_by_kernel[kernel] != before + 1:
+                    failures.append(f"widths {name}: {kernel} not launched")
+                ref = grid2p.solve_reference(*args, dtype)
+                label = f"widths {name}: B={WIDTH_LANES} iters={iters}"
+                if iters == CHECK_ITERS:
+                    if solver == "cfr":
+                        short_check(label, out, ref, tol)
+                    else:
+                        tie_check(label, out, ref, tol)
+                    if bf16:
+                        precision_control(label, args, tol)
+                    continue
+                if solver == "cfr":
+                    n = CONTROL_LANES
+                    cpu = grid2p.solve_reference(
+                        game, make(iters), *[x[:n].cpu() for x in inputs],
+                        net, dtype)
+                    long_check(f"{label} (control on {n} lanes)", out, ref,
+                               grid2p.Grid2Outputs(*(x[:n] for x in ref)),
+                               cpu, flips=TIE_SHARE)
+                    continue
+                sums = WIDTH_CONTROL_SUMS[dname]
+                with chip_studies._products(chip_studies.ORDERS[sums]):
+                    other = grid2p.solve_reference(*args, dtype)
+                long_check(f"{label} (control: {sums} sums)", out, ref, ref,
+                           other, flips=FP_TIE_SHARE)
+            print(f"  {time.perf_counter() - t0:.1f} s")
+        for width, layers, solver, il in RING_BITS:
+            make = cfr if solver == "cfr" else fp
+            deep, base = ring_bits_nets(game, width, layers, 400 + layers)
+            args = (game, make(ITERS), *random_inputs(B, ITERS, 500 + layers))
+            outs, how, rings = [], [], []
+            for net in (deep, base):
+                net = net.to(dev)
+                lb = grid2p.choose_lane_block(*args[:2], net, torch.bfloat16,
+                                              B, interleave=il,
+                                              ablate="nogelu")
+                plan = grid2p.kernel_plan(*args[:2], net, torch.bfloat16, B,
+                                          lb, interleave=il, ablate="nogelu")
+                rings.append(plan.ring)
+                how.append(f"{net.n_hidden}x{net.n_layers} "
+                           f"{'ring' if plan.ring else 'resident'} at lane "
+                           f"block {lb}")
+                outs.append(grid2p.solve(*args, net, torch.bfloat16,
+                                         interleave=il, ablate="nogelu"))
+            ok = (finite(outs[0]) and rings == [True, False]
+                  and all(torch.equal(x, y) for x, y in zip(*outs)))
+            label = (f"widths ring bits {width}x{layers} {solver}"
+                     f"{' interleave=2' if il == 2 else ''}")
+            print(f"check {label}: {how[0]} against {how[1]}, {B} lanes x "
+                  f"{ITERS} iterations, max_abs_diff="
+                  f"{max_diff(*outs):.3e} (must be the same bits) "
+                  f"{'ok' if ok else 'MISS'}")
+            if not ok:
+                failures.append(f"kernel check {label}")
+        lap("widths: checks")
+        for (nd, nf), width, layers, solver, lb, dname in WIDTH_TIMED:
+            g_ = LiarsDice(nd, nf)
+            dtype = torch.bfloat16 if dname == "bf16" else torch.float32
+            make = cfr if solver == "cfr" else fp
+            net = CFVNet(g_, width, layers, True,
+                         generator=torch.Generator().manual_seed(5)).to(dev)
+            args = (g_, make(ITERS), *random_inputs(B, ITERS, 71, g_), net)
+            lb = lb or grid2p.choose_lane_block(*args[:2], net, dtype, B)
+            plan = grid2p.kernel_plan(*args[:2], net, dtype, B, lb)
+            ms, out = time_kernel(args, reps=1, dtype=dtype, lane_block=lb)
+            flops = grid2p.mlp_flops_per_lane_iter(g_, width, layers) \
+                * B * ITERS
+            bound_ms = flops / (H100_BF16_FLOPS if dname == "bf16"
+                                else H100_F32_FLOPS) * 1e3
+            kernel = grid2p.kernel_name(make(1))
+            how = "bf16 ring" if plan.ring else "resident"
+            print(f"  {kernel} {nd}x{nf} {width}x{layers} {dname} ({how}): "
+                  f"{ms:.3f} ms a launch of {B} lanes x "
+                  f"{ITERS} iterations at lane block {lb}; bound "
+                  f"{bound_ms:.3f} ms ({flops:.4e} model FLOP at the {dname} "
+                  f"peak, share {bound_ms / ms:.2%})")
+            game_modes.setdefault(kernel, []).append(dict(
+                game=f"{nd}x{nf}", net=f"{width}x{layers}", operands=dname,
+                ring=plan.ring, lane_block=lb, ms=ms,
+                bound_ms=bound_ms))
+            if not finite(out):
+                failures.append(f"widths timed {nd}x{nf} {width}x{layers} "
+                                f"{solver} {dname}: non-finite outputs")
+
+    if "widths" in phases:
+        widths()
+        lap("widths: timed launches")
+
+    # ------------------------------- 18. the run entry at other net shapes
+    def run_entry_widths() -> None:
+        """``rebel_tpu_torch.run`` in process: the round-5 run with 3
+        hidden layers (RUN_ENTRY_DEEP_ARGS: generation through the bf16
+        ring, the exploit evaluation at epoch 0 through the f32 kernel,
+        both counted), and the README's quick run at width 32
+        (QUICK_RUN_ARGS) on the card."""
+        import tempfile
+
+        from rebel_tpu_torch import run as run_mod
+
+        with tempfile.TemporaryDirectory() as tmp:
+            for label, argv in (("256x3", RUN_ENTRY_DEEP_ARGS),
+                                ("quick run, width 32",
+                                 ["--adhoc", *QUICK_RUN_ARGS])):
+                exp = pathlib.Path(tmp) / label.split()[0].strip(",")
+                reset_counts()
+                t0 = time.perf_counter()
+                out = run_mod.execute([
+                    "--cfg", str(ROOT / "conf" / "liars_sp.yaml"),
+                    "--exp_dir", str(exp), "--mode", "gentle_start", *argv])
+                torch.cuda.synchronize()
+                tr = out.trainer
+                sub = tr.cfg.env.subgame_params
+                kernel = grid2p.kernel_name(sub)
+                dtype = tr.cfg.net_compute_dtype
+                batch = tr.cfg.selfplay_batch
+                lb = grid2p.choose_lane_block(tr.game, sub, tr.net, dtype,
+                                              batch)
+                plan = grid2p.kernel_plan(tr.game, sub, tr.net, dtype, batch,
+                                          lb)
+                print(f"run-entry-widths {label}: {time.perf_counter() - t0:.2f}"
+                      f" s wall, epochs {tr.epoch}, {tr.gen_steps} generation "
+                      f"steps, net {tr.net.n_hidden}x{tr.net.n_layers}, "
+                      f"generation {dtype}, lane block "
+                      f"{lb}, {'bf16 ring' if plan.ring else 'resident'}")
+                total = read_counts(f"run-entry-widths {label}", kernel)
+                print(f"  {kernel} launches: {tr.gen_steps} in generation, "
+                      f"{total - tr.gen_steps} in the exploit evaluations "
+                      "(f32)")
+                if total - tr.gen_steps <= 0:
+                    failures.append(f"run-entry-widths {label}: no launch in "
+                                    "the exploit evaluation")
+                if label == "256x3" and not plan.ring:
+                    failures.append("run-entry-widths 256x3: generation "
+                                    "does not take the bf16 ring")
+                lines = [json.loads(x) for x in
+                         (exp / "metrics.jsonl").read_text().splitlines()]
+                for m in lines:
+                    print(f"  epoch {m['epoch']}: loss {m['loss/train']:.6f}"
+                          + "".join(f", {k} {m[k]:.4g}" for k in (
+                              "exploitability_last", "exploitability_avg",
+                              "timing/exploit") if k in m))
+                bad = [m["epoch"] for m in lines
+                       if not math.isfinite(m["loss/train"])
+                       or not 0 <= m.get("exploitability_last", 0) <= 2
+                       or not 0 <= m.get("exploitability_avg", 0) <= 2]
+                files = ["result.json"] + (
+                    ["ckpt/epoch0.params", "ckpt/epoch1.params"]
+                    if label == "256x3" else [])
+                absent = [f for f in files if not (exp / f).exists()]
+                if (bad or absent or [m["epoch"] for m in lines] != [0, 1]
+                        or "exploitability_avg" not in lines[0]):
+                    failures.append(f"run-entry-widths {label}: epochs "
+                                    f"{[m['epoch'] for m in lines]}, bad "
+                                    f"{bad}, files missing {absent}")
+
+    if "run-entry-widths" in phases:
+        run_entry_widths()
+        lap("run-entry-widths")
+
     print(f"phase host seconds: {phase_s}")
     print(f"whole run: {time.perf_counter() - start:.1f} s, the build "
           "included")
@@ -2046,6 +2427,8 @@ def main() -> int:
         "launches": launches[kernel],
         **measured[kernel],
         "library_ms": None,
+        "instantiations": [x for x in instantiations
+                           if x.split()[0] == kernel],
         "modes": game_modes.get(kernel, []),
     } for kernel, replaces in (
         ("grid2_cfr", "rebel_tpu/solving/grid2p.py:844"),

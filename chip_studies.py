@@ -5,9 +5,11 @@ not checks: what ``PERF.md`` quotes beside ``chip_smoke.py``'s readings.
     python3 chip_studies.py drift --out DIR
     python3 chip_studies.py f32-ladder --out DIR [--device cpu]
     python3 chip_studies.py sum-order --out DIR [--game 2x3] [--seed 62]
+        [--fresh WIDTHxLAYERS --net-seed N --solver cfr]
     python3 chip_studies.py eval-sum-order --out DIR [--game 2x3]
     python3 chip_studies.py same-bits --old PATH --out DIR
     python3 chip_studies.py launches --out DIR
+    python3 chip_studies.py plain-ms --out DIR
 
 From the root of a checkout.  ``drift`` (card only): the exploitability
 of a ``--repeats``-repeat sampled evaluation (depth-2 subgames, the
@@ -24,11 +26,17 @@ net_compute_dtype=torch.float32)``); ``--num-repeats`` cuts the protocol,
 ``--device cpu`` runs on the CPU (the kernel engine then runs its plain
 version); rows in ``DIR/f32_ladder.json``.  ``sum-order`` (the CPU by
 default): the plain version of the fused solve with bf16 operands, the
-repo's trained FP net of ``--game`` and ``chip_smoke.py``'s ``games``
-inputs (``--lanes`` lanes from ``--seed``, ``--iters`` iterations), with
-the MLP's sums taken in each order of :data:`ORDERS`, and with the f32
-rounding of the kernel's epilogue (:func:`_kernel_epilogue_mlp`), each
-held to the plain version's own; rows in ``DIR/sum_order.json``.
+repo's trained FP net of ``--game`` (or, with ``--fresh WIDTHxLAYERS``,
+the fresh net of ``chip_smoke.py``'s ``widths`` phase from
+``--net-seed``, ``--solver`` CFR or FP, ``--noln`` without LayerNorm)
+and ``chip_smoke.py``'s ``games`` inputs (``--lanes`` lanes from
+``--seed``, ``--iters`` iterations), with the MLP's sums taken in each
+order of :data:`ORDERS`, and with the f32 rounding of the kernel's
+epilogue (:func:`_kernel_epilogue_mlp`; ``--orders`` picks among them),
+each held to the plain version's own: rvm's mean, max, worst lane and
+0.9 quantile over lanes, and ``snap_lanes``, the share of lanes whose
+snapshots move by more than :data:`LANE_TOL`; rows in
+``DIR/sum_order.json``.
 ``eval-sum-order`` (the card by default): the plain version's
 ``--repeats``-repeat sampled evaluation over ``--iters`` subgame
 iterations at ``--game`` with bf16 operands, with the MLP's sums in f32
@@ -52,6 +60,9 @@ lane block the wrapper chooses there): the paper protocol's
 ``exploitability_avg``, which runs the kernel with an f32 MLP); the count
 depends on neither the net nor the subgame iterations, so it runs
 without a net over one iteration; rows in ``DIR/launches.json``.
+``plain-ms`` (card only, some ten minutes): the plain version's time
+(``grid2p.solve_reference``) at the modes of PERF.md's kernel table that
+lack it (:data:`PLAIN_MODES`); rows in ``DIR/plain_ms.json``.
 """
 
 from __future__ import annotations
@@ -142,6 +153,11 @@ def _products(matmul):
 # name: the MLP's matmul (None: the plain version's own f32 product)
 ORDERS = {"f32": None, "f64": _f64, "tc_chained": _tc_chained,
           "tc_steps": _tc_steps}
+# sum-order's plain versions: ORDERS and the kernel's epilogue rounding.
+SUM_ORDERS = [*ORDERS, "kernel_epilogue"]
+# chip_smoke.py's LANE_TOL: a lane whose snapshots differ anywhere by more
+# is counted in sum-order's ``snap_lanes``, as the check counts it.
+LANE_TOL = 0.05
 
 
 def _fma(a, b, c):
@@ -186,10 +202,10 @@ def _kernel_epilogue_mlp(net):
             if ln is not None:
                 n = x.shape[0]
                 # thread j of a quad holds columns 8 m + 2 j + e
-                cols = x.view(n, 32, 4, 2)
+                cols = x.view(n, -1, 4, 2)
                 s = x.new_zeros(n, 4)
                 q = x.new_zeros(n, 4)
-                for m in range(32):
+                for m in range(cols.shape[1]):
                     for e in range(2):
                         v = cols[:, m, :, e]
                         s = s + v
@@ -222,6 +238,10 @@ SAME_BITS = [((nd, nf), solver, dtype, 1)
              for nd, nf in ((1, 4), (2, 3)) for solver in ("cfr", "fp")
              for dtype in ("bf16", "f32", "none")]
 SAME_BITS += [((1, 4), "cfr", dtype, 2) for dtype in ("bf16", "f32")]
+# The tree's bf16 ring beside its resident weights on the same inputs:
+# (game, solver, lane block), each against the mode of SAME_BITS with the
+# same game and solver in bf16.
+SAME_BITS_RING = [((2, 3), "cfr", 4), ((2, 3), "fp", 4)]
 
 
 def same_bits_launch(args) -> list[dict]:
@@ -273,6 +293,24 @@ def same_bits_launch(args) -> list[dict]:
                          interleave=interleave, lanes=lanes, iters=iters,
                          lane_block=grid2p.solve.last_lane_block,
                          ms=times, out=out))
+        for ring_game, ring_solver, lane_block in (
+                SAME_BITS_RING if args.ring else ()):
+            if ((nd, nf), solver, dtype, interleave) != (
+                    ring_game, ring_solver, "bf16", 1):
+                continue
+            out = [x.cpu() for x in grid2p.solve(*call,
+                                                 lane_block=lane_block)]
+            times = []
+            for _ in range(SAME_BITS_TIMED):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                grid2p.solve(*call, lane_block=lane_block)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            rows.append(dict(rows[-1], lane_block=lane_block, ring=True,
+                             ms=times, out=out))
     torch.save(rows, args.out)
     return rows
 
@@ -300,17 +338,22 @@ def same_bits(args) -> list[dict]:
         path = args.out.resolve() / f"same_bits_{version}_{i}.pt"
         subprocess.run([sys.executable, str(ROOT / "chip_studies.py"),
                         "same-bits-launch", "--root", str(roots[version]),
-                        "--out", str(path)], cwd=roots[version], check=True)
+                        "--out", str(path)]
+                       + (["--ring"] if version == "tree" else []),
+                       cwd=roots[version], check=True)
         runs[version].append(torch.load(path))
         path.unlink()
     rows = []
+    tree_rows = [r for r in runs["tree"][0] if not r.get("ring")]
     for k, old in enumerate(runs["old"][0]):
-        tree = runs["tree"][0][k]
+        tree = tree_rows[k]
         row = {key: old[key] for key in ("game", "solver", "mlp",
                                          "interleave", "lanes", "iters")}
         row.update(lane_block_old=old["lane_block"],
                    lane_block_tree=tree["lane_block"])
         for version, got in runs.items():
+            if version == "tree":
+                got = [[r for r in run if not r.get("ring")] for run in got]
             ms = [t for run in got for t in run[k]["ms"]]
             row[f"ms_{version}"] = sum(ms) / len(ms)
             row[f"{version}_repeats_equal"] = all(
@@ -323,6 +366,23 @@ def same_bits(args) -> list[dict]:
                 max_abs_diff=float((a - b).abs().max()),
                 lanes_differing=int((a != b).flatten(1).any(1).sum()))
         row["equal"] = all(row[k]["equal"] for k in ("rvm", "snap0", "snap1"))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    # The ring beside the resident weights, in the tree's processes.
+    for j, ring in enumerate(runs["tree"][0]):
+        if not ring.get("ring"):
+            continue
+        resident = runs["tree"][0][j - 1]
+        ms = [t for run in runs["tree"] for t in run[j]["ms"]]
+        ms_resident = [t for run in runs["tree"] for t in run[j - 1]["ms"]]
+        row = {key: ring[key] for key in ("game", "solver", "mlp", "lanes",
+                                          "iters")}
+        row.update(lane_block_ring=ring["lane_block"],
+                   lane_block_resident=resident["lane_block"],
+                   ms_ring=sum(ms) / len(ms),
+                   ms_resident=sum(ms_resident) / len(ms_resident),
+                   equal=all(torch.equal(x, y) for x, y in
+                             zip(ring["out"], resident["out"])))
         rows.append(row)
         print(json.dumps(row), flush=True)
     (args.out / "same_bits.json").write_text(json.dumps(rows, indent=1))
@@ -480,9 +540,24 @@ def sum_order(args) -> list[dict]:
     from rebel_tpu_torch.solving import grid2p
     from rebel_tpu_torch.solving.params import SubgameSolvingParams
 
+    from rebel_tpu_torch.nets.cfv_net import CFVNet
+
     nd, nf = (int(x) for x in args.game.split("x"))
     game = LiarsDice(nd, nf)
-    net = _load_net(str(ROOT / FP_NETS[nd, nf]), game, args.device)[1]
+    if args.fresh:
+        # chip_smoke.py's fresh_net(layers, use_ln, seed, seeded_ln=True,
+        # width) of its widths phase.
+        width, layers = (int(x) for x in args.fresh.split("x"))
+        g = torch.Generator().manual_seed(args.net_seed)
+        net = CFVNet(game, width, layers, not args.noln, generator=g)
+        with torch.no_grad():
+            for _, ln in net.hidden_layers():
+                if ln is not None:
+                    ln.weight.copy_(0.5 + torch.rand(width, generator=g))
+                    ln.bias.copy_(torch.rand(width, generator=g) - 0.5)
+        net = net.to(args.device)
+    else:
+        net = _load_net(str(ROOT / FP_NETS[nd, nf]), game, args.device)[1]
     # chip_smoke.py's random_inputs
     g = torch.Generator().manual_seed(args.seed)
     B = args.lanes
@@ -493,29 +568,44 @@ def sum_order(args) -> list[dict]:
     t_stop = torch.randint(0, args.iters + 1, (B,), generator=g)
     inputs = [x.to(args.device) for x in (bids, players, beliefs, t_stop)]
     params = SubgameSolvingParams(num_iters=args.iters, max_depth=2,
-                                  use_cfr=False, linear_update=True)
+                                  use_cfr=args.solver == "cfr",
+                                  linear_update=True)
     plain = grid2p.kernel_mlp(net, torch.bfloat16)
     outs = {}
-    for name, matmul in ORDERS.items():
-        def mlp(x, matmul=matmul):
+    for name in args.orders:
+        if name == "kernel_epilogue":
+            outs[name] = grid2p.solve_loop(game, params, *inputs,
+                                           _kernel_epilogue_mlp(net))
+            continue
+
+        def mlp(x, matmul=ORDERS[name]):
             if matmul is None:
                 return plain(x)
             with _products(matmul):
                 return plain(x)
         outs[name] = grid2p.solve_loop(game, params, *inputs, mlp)
-    outs["kernel_epilogue"] = grid2p.solve_loop(
-        game, params, *inputs, _kernel_epilogue_mlp(net))
+    pairs = [("f32", o) for o in outs if o != "f32"]
+    if "tc_chained" in outs and "tc_steps" in outs:
+        pairs.append(("tc_chained", "tc_steps"))
     rows = []
-    for a, b in [("f32", o) for o in outs if o != "f32"] + [
-            ("tc_chained", "tc_steps")]:
+    for a, b in pairs:
         rvm = (outs[a].rvm - outs[b].rvm).abs().flatten(1).amax(1)
-        rows.append(dict(game=args.game, solver="fp", iters=args.iters,
+        snap = torch.maximum(
+            (outs[a].snap0 - outs[b].snap0).abs().flatten(1).amax(1),
+            (outs[a].snap1 - outs[b].snap1).abs().flatten(1).amax(1))
+        rows.append(dict(game=args.game, solver=args.solver,
+                         net=(args.fresh or "trained")
+                         + (" noln" if args.noln else ""), iters=args.iters,
                          lanes=B, seed=args.seed, pair=f"{a}-{b}",
+                         max_abs_diff=max(float((x - y).abs().max())
+                                          for x, y in zip(outs[a], outs[b])),
                          rvm_mean=float((outs[a].rvm - outs[b].rvm).abs()
                                         .mean()),
                          rvm_max=float(rvm.max()),
                          worst_lane=int(rvm.argmax()),
-                         lanes_rvm_over_1e3=int((rvm > 1e-3).sum())))
+                         lanes_rvm_over_1e3=int((rvm > 1e-3).sum()),
+                         lane_rvm_q90=float(rvm.quantile(0.9)),
+                         snap_lanes=float((snap > LANE_TOL).float().mean())))
         print(json.dumps(rows[-1]), flush=True)
     (args.out / "sum_order.json").write_text(json.dumps(rows, indent=1))
     return rows
@@ -585,6 +675,83 @@ LAUNCH_GAMES = ((1, 4), (1, 5), (1, 6), (2, 3))
 LAUNCH_REPEATS = (1024, 8)
 
 
+# plain-ms: the modes of PERF.md's kernel table without the plain
+# version's time: (game, solver, MLP: "bf16", "f32" or "none", net shape
+# (width, hidden layers)), each at 1024 lanes x 1024 iterations from the
+# same seed, with the repo's trained net of the game and solver at 256x2,
+# else a net from a seed.
+PLAIN_MODES = [((nd, nf), solver, mlp, (256, 2))
+               for nd, nf in ((1, 5), (1, 6), (2, 3))
+               for solver in ("cfr", "fp") for mlp in ("bf16", "f32")]
+PLAIN_MODES += [((1, 4), solver, mlp, (256, 2))
+                for solver in ("cfr", "fp") for mlp in ("f32", "none")]
+PLAIN_MODES += [((1, 4), "cfr", "bf16", (256, 3)),
+                ((1, 4), "cfr", "bf16", (32, 2)),
+                ((1, 4), "cfr", "f32", (32, 2))]
+GAME_NETS = {**NETS, ((1, 5), "fp"): FP_NETS[1, 5],
+             ((1, 6), "cfr"): "results/liars_sp/r5_1x6cfr/ckpt/epoch990.params",
+             ((1, 6), "fp"): FP_NETS[1, 6]}
+
+
+def plain_ms(args) -> list[dict]:
+    """The plain version's time (``grid2p.solve_reference``, CUDA events,
+    one run after a run of 4 iterations) at PLAIN_MODES, on the card."""
+    import torch
+
+    from rebel_tpu_torch.bench import card_name_and_power_limit
+    from rebel_tpu_torch.eval.recursive_eval import _load_net
+    from rebel_tpu_torch.games.liars_dice import LiarsDice
+    from rebel_tpu_torch.nets.cfv_net import CFVNet
+    from rebel_tpu_torch.solving import grid2p
+    from rebel_tpu_torch.solving.params import SubgameSolvingParams
+
+    if not torch.cuda.is_available():
+        raise SystemExit("plain-ms runs on the card only")
+    dev = torch.device("cuda")
+    card = card_name_and_power_limit()
+    rows = []
+    for (nd, nf), solver, mlp, (width, layers) in PLAIN_MODES:
+        game = LiarsDice(nd, nf)
+        A, H = game.num_actions, game.num_hands
+        g = torch.Generator().manual_seed(SAME_BITS_SEED)
+        expo = -torch.log(torch.rand((1024, 2, H), generator=g))
+        inputs = [torch.randint(-1, A - 1, (1024,), generator=g),
+                  torch.randint(0, 2, (1024,), generator=g),
+                  expo / expo.sum(-1, keepdim=True),
+                  torch.randint(0, 1025, (1024,), generator=g)]
+        net = None
+        path = GAME_NETS[(nd, nf), solver] if (width, layers) == (256, 2) \
+            else f"{width}x{layers} from a seed"
+        if mlp != "none":
+            if (width, layers) == (256, 2):
+                net = _load_net(str(ROOT / path), game, "cuda")[1]
+            else:
+                net = CFVNet(game, width, layers, True,
+                             generator=torch.Generator().manual_seed(5)
+                             ).to(dev)
+        dtype = torch.float32 if mlp == "f32" else torch.bfloat16
+        call = lambda iters: grid2p.solve_reference(
+            game, SubgameSolvingParams(num_iters=iters, max_depth=2,
+                                       use_cfr=solver == "cfr",
+                                       linear_update=True),
+            *[x.to(dev) for x in inputs[:3]],
+            torch.clamp(inputs[3], max=iters).to(dev), net, dtype)
+        call(4)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call(1024)
+        end.record()
+        end.synchronize()
+        rows.append(dict(card=card, game=f"{nd}x{nf}", solver=solver,
+                         mlp=mlp, net=path if net is not None else None,
+                         lanes=1024, iters=1024,
+                         plain_ms=start.elapsed_time(end)))
+        print(json.dumps(rows[-1]), flush=True)
+    (args.out / "plain_ms.json").write_text(json.dumps(rows, indent=1))
+    return rows
+
+
 def launches(args) -> list[dict]:
     """The fused solve's launches of a sampled evaluation: the kernel
     engine's frontier solver on the CPU (its plain version), with every
@@ -650,7 +817,19 @@ def main(argv=None) -> list[dict]:
     o = sub.add_parser("sum-order")
     o.add_argument("--out", type=pathlib.Path, required=True)
     o.add_argument("--game", default="2x3",
-                   choices=[f"{nd}x{nf}" for nd, nf in FP_NETS])
+                   choices=["1x4"] + [f"{nd}x{nf}" for nd, nf in FP_NETS])
+    o.add_argument("--fresh", default=None, metavar="WIDTHxLAYERS",
+                   help="a fresh net from --net-seed, as chip_smoke.py's "
+                        "widths phase makes it, instead of the trained FP "
+                        "net")
+    o.add_argument("--net-seed", type=int, default=0)
+    o.add_argument("--noln", action="store_true",
+                   help="the fresh net without LayerNorm")
+    o.add_argument("--orders", nargs="+", default=SUM_ORDERS,
+                   choices=SUM_ORDERS,
+                   help="the plain versions to run (f32 first: each other "
+                        "is held to it)")
+    o.add_argument("--solver", default="fp", choices=["fp", "cfr"])
     o.add_argument("--seed", type=int, default=62)
     o.add_argument("--lanes", type=int, default=256)
     o.add_argument("--iters", type=int, default=64)
@@ -668,9 +847,12 @@ def main(argv=None) -> list[dict]:
     b.add_argument("--out", type=pathlib.Path, required=True)
     n = sub.add_parser("launches")
     n.add_argument("--out", type=pathlib.Path, required=True)
+    pm = sub.add_parser("plain-ms")
+    pm.add_argument("--out", type=pathlib.Path, required=True)
     bl = sub.add_parser("same-bits-launch")
     bl.add_argument("--root", type=pathlib.Path, required=True)
     bl.add_argument("--out", type=pathlib.Path, required=True)
+    bl.add_argument("--ring", action="store_true")
     args = ap.parse_args(argv)
     if args.study == "same-bits-launch":
         sys.path.insert(0, str(args.root))
@@ -680,7 +862,8 @@ def main(argv=None) -> list[dict]:
     study = {"drift": drift, "f32-ladder": f32_ladder,
              "sum-order": sum_order,
              "eval-sum-order": eval_sum_order,
-             "same-bits": same_bits, "launches": launches}[args.study]
+             "same-bits": same_bits, "launches": launches,
+             "plain-ms": plain_ms}[args.study]
     return study(args)
 
 

@@ -3,7 +3,8 @@
 Each kernel is one ``.cu`` file beside this module with a plain C
 interface.  ``load(name)`` compiles it with ``nvcc`` for ``sm_90a`` into
 ``rebel_tpu_torch/_build/`` (listed in ``.gitignore``), keyed by a hash of
-the source and flags, and loads the shared library.  A plain C interface
+the source and flags, and loads the shared library; ``defines`` adds a
+``-D`` for each (``mlp_breakdown``'s variants).  A plain C interface
 keeps PyTorch's headers out of the compile: it takes seconds where a
 ``torch.utils.cpp_extension`` build takes minutes.  Nothing is compiled
 when this module is imported, and a missing ``nvcc`` or a failed compile
@@ -35,7 +36,8 @@ NVCC_FLAGS = [
 ]
 
 _loaded: dict[str, ctypes.CDLL] = {}
-# Seconds each kernel took to compile in this process (0.0: found built).
+# Seconds each build took to compile in this process (0.0: found built),
+# by name and defines ("grid2_cfr", "grid2_cfr BREAKDOWN=2").
 build_seconds: dict[str, float] = {}
 
 
@@ -52,31 +54,40 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> pathlib.Path:
+def flags(defines: tuple[str, ...] = ()) -> list[str]:
+    """``NVCC_FLAGS`` and a ``-D`` for each of ``defines``."""
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def library_path(name: str, defines: tuple[str, ...] = ()) -> pathlib.Path:
     src = (KERNEL_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(
+        src + " ".join(flags(defines)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> pathlib.Path:
-    """Compile ``kernels/<name>.cu`` unless a build of this exact source
-    exists; returns the library path.  The compiler's output (register
-    and shared-memory use per kernel) is kept beside it as ``.log``."""
-    so = library_path(name)
+def build(name: str, defines: tuple[str, ...] = ()) -> pathlib.Path:
+    """Compile ``kernels/<name>.cu`` with ``defines`` unless a build of
+    this exact source and these flags exists; returns the library path.
+    The compiler's output (register and shared-memory use per kernel) is
+    kept beside it as ``.log``."""
+    so = library_path(name, defines)
+    key = " ".join((name, *defines))
     if so.exists():
-        build_seconds.setdefault(name, 0.0)
+        build_seconds.setdefault(key, 0.0)
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+    cmd = [nvcc_path(), *flags(defines), "-o", str(tmp),
            str(KERNEL_DIR / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds[name] = time.perf_counter() - t0
+    build_seconds[key] = time.perf_counter() - t0
     so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed to build {name}.cu:\n{proc.stdout}{proc.stderr}"
+            f"nvcc failed to build {name}.cu with {list(defines)}:\n"
+            f"{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, so)
     return so

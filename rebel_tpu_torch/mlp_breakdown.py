@@ -1,12 +1,14 @@
 """Where a launch of the fused solve spends its time, on the card.
 
     python -m rebel_tpu_torch.mlp_breakdown [--rounds 2] [--batch 1024]
-        [--parts mlp,mlp32,body]
+        [--parts mlp,mlp32,body,ring16]
 
-Builds variants of ``kernels/grid2_cfr.cu`` with one part taken out beside
-the source as it is, and times one launch of each with CUDA events, in
-rounds (every variant once per round).  A variant's results are wrong by construction: only its
-time means something.  Prints one JSON line per reading.
+Builds ``kernels/grid2_cfr.cu`` with parts taken out (``-DBREAKDOWN=`` a
+mask of the source's ``CUT_*`` switches, :data:`CUTS`) beside the build as
+it is, all at once, and times one launch of each with CUDA events, in
+rounds (every variant once per round).  A variant's results are wrong by
+construction: only its time means something.  Prints one JSON line per
+reading.
 
 * ``mlp``: the parts of the bf16 MLP stage (the wgmma products, the f32
   epilogue of the hidden layers, the head) at the :data:`MLP_CELLS`:
@@ -27,15 +29,21 @@ time means something.  Prints one JSON line per reading.
   mean, the update) at the :data:`BODY_CELLS`: 1x4f at lane block 8
   without a net and with a bf16 net for CFR and FP, and 2x3f with a bf16
   net for CFR and FP at their chosen lane blocks.
+* ``ring16``: the parts of the bf16 MLP where its hidden layers stream
+  through the ring (the products, the epilogue, the ring's waits,
+  departures and copies) at the :data:`RING16_CELLS`: a 256x3 net at
+  1x4f at its chosen lane block, and the 256x2 net at 2x3f at lane block
+  4, CFR and FP, each beside the resident layout at the lane block it
+  fits (1x4f: none; 2x3f: 2).
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import ctypes
 import json
-import subprocess
 import sys
 
 import torch
@@ -46,16 +54,19 @@ from rebel_tpu_torch.nets.cfv_net import CFVNet
 from rebel_tpu_torch.solving import grid2p
 from rebel_tpu_torch.solving.params import SubgameSolvingParams
 
-# name: [(a line of the kernel, its replacement), ...]; every edit of a
-# variant must apply.
+# The kernel's switches (its #define CUT_*): a variant takes out the parts
+# of its mask.
+CUTS = {"MMA_PRODUCTS": 1, "MMA_EPILOGUE": 2, "MMA_HEAD": 4,
+        "RING16_WAIT": 8, "FMA_PRODUCTS": 16, "FMA_EPILOGUE": 32,
+        "FMA_HEAD": 64, "FMA_RING": 128, "SNAPSHOTS": 256, "REACH": 512,
+        "TERMINAL": 1024, "LEVEL1": 2048, "ROOT": 4096, "UPDATE": 8192}
+
+# name: mask.  "no epilogue" also drops the rounding into the next A.
 VARIANTS = {
-    "whole": None,
-    "no products": [("    for (int s = 0; s < S; ++s)\n        wgmma_m64n256k16(",
-                     "    for (int s = 0; s < 0; ++s)\n        wgmma_m64n256k16(")],
-    "no epilogue": [("        const float* bias = f32 + 3 * k * NH;",
-                     "        continue;\n        const float* bias = f32 + 3 * k * NH;")],
-    "no head": [("for (int nt = 0; nt < mlp_hn(p.H) / 8; ++nt) {",
-                 "for (int nt = 0; nt < 0; ++nt) {")],
+    "whole": 0,
+    "no products": CUTS["MMA_PRODUCTS"],
+    "no epilogue": CUTS["MMA_EPILOGUE"],
+    "no head": CUTS["MMA_HEAD"],
 }
 # name: (game (dice, faces), CFR); each at the lane block the wrapper
 # chooses.
@@ -70,16 +81,10 @@ MLP_CELLS = {
 # The f32 MLP's parts.  "no ring": every slab is read from the first stage
 # of the ring, with no wait, barrier or copy after the set-up's.
 MLP32_VARIANTS = {
-    "no products": [("    for (int k = 0; k < K; k += 4) {\n        float4 a",
-                     "    for (int k = 0; k < 0; k += 4) {\n        float4 a")],
-    "no epilogue": [("float (&v)[WARP_ROWS][8], int k, int lane) {\n",
-                     "float (&v)[WARP_ROWS][8], int k, int lane) {\n"
-                     "    return;\n")],
-    "no head": [("for (int h0 = 0; h0 < p.H; h0 += 4) {",
-                 "for (int h0 = 0; h0 < 0; h0 += 4) {")],
-    "no ring": [("    const int s = g.n % RING_STAGES, parity",
-                 "    f(g.stages);\n    ++g.n;\n    return;\n"
-                 "    const int s = g.n % RING_STAGES, parity")],
+    "no products": CUTS["FMA_PRODUCTS"],
+    "no epilogue": CUTS["FMA_EPILOGUE"],
+    "no head": CUTS["FMA_HEAD"],
+    "no ring": CUTS["FMA_RING"],
 }
 # name: (game (dice, faces), CFR, lane block; None: the chosen one)
 MLP32_CELLS = {
@@ -88,25 +93,16 @@ MLP32_CELLS = {
     "2x3 cfr f32": ((2, 3), True, None),
 }
 
-# The body's phases.
-# "no update": CFR's regret update and regret matching at both levels;
-# FP's best-response sums and the average policy.
+# The body's phases.  "no update": CFR's regret update and regret
+# matching at both levels; FP's best-response sums and the average
+# policy.
 BODY_VARIANTS = {
-    "no snapshots": [("if (it == next_stop) {", "if (false) {")],
-    "no reach": [("const int n_reach = LB * K_REACH;",
-                  "const int n_reach = 0;")],
-    "no terminal values": [("i < (A + 1) * LB * H; i += GT) {",
-                            "i < 0; i += GT) {")],
-    "no level-1 values": [("i < A * LB * H; i += GT) {",
-                           "i < 0; i += GT) {")],
-    "no root values": [("const int n = LB * H;  // root rows",
-                        "const int n = 0;")],
-    "no update": [("if (lvl1_is_trav) {\n                    const float bt",
-                   "if (false) {\n                    const float bt"),
-                  ("if (lvl1_is_trav) {\n                    float* r",
-                   "if (false) {\n                    float* r"),
-                  ("const bool store = live && root_is_trav;",
-                   "const bool store = false;")],
+    "no snapshots": CUTS["SNAPSHOTS"],
+    "no reach": CUTS["REACH"],
+    "no terminal values": CUTS["TERMINAL"],
+    "no level-1 values": CUTS["LEVEL1"],
+    "no root values": CUTS["ROOT"],
+    "no update": CUTS["UPDATE"],
 }
 # name: (game (dice, faces), CFR, bf16 net, lane block; None: the chosen
 # one)
@@ -118,32 +114,36 @@ BODY_CELLS = {
     "2x3 fp bf16": ((2, 3), False, True, None),
 }
 
+# The bf16 ring's parts.  "no ring waits": every slab is read from the
+# first stage of the ring, with no wait, departure or copy after the
+# set-up's.
+RING16_VARIANTS = {
+    "whole": 0,
+    "no products": CUTS["MMA_PRODUCTS"],
+    "no epilogue": CUTS["MMA_EPILOGUE"],
+    "no ring waits": CUTS["RING16_WAIT"],
+}
+# name: (game (dice, faces), CFR, hidden layers, lane block; None: the
+# chosen one)
+RING16_CELLS = {
+    "1x4 cfr 256x3": ((1, 4), True, 3, None),
+    "2x3 cfr 256x2 ring": ((2, 3), True, 2, 4),
+    "2x3 cfr 256x2 resident": ((2, 3), True, 2, 2),
+    "2x3 fp 256x2 ring": ((2, 3), False, 2, 4),
+    "2x3 fp 256x2 resident": ((2, 3), False, 2, 2),
+}
 
-def build_variants(src: str, variants: dict, tag: str) -> dict:
-    """``{name: library}`` for ``{name: [(old, new), ...] or None}``,
-    compiled side by side into the build directory."""
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, edits in variants.items():
-        text = src
-        for old, new in edits or ():
-            if text.count(old) != 1:
-                raise SystemExit(f"variant {name!r}: its line occurs "
-                                 f"{text.count(old)} times")
-            text = text.replace(old, new)
-        cu = build.BUILD_DIR / f"breakdown_{tag}_{name.replace(' ', '_')}.cu"
-        cu.write_text(text)
-        so = cu.with_suffix(".so")
-        procs[name] = (so, subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"variant {name!r} failed to build:\n{log}")
-        libs[name] = ctypes.CDLL(str(so))
-    return libs
+
+def build_variants(variants: dict) -> dict:
+    """``{name: library}`` for ``{name: mask}``: the kernel with the parts
+    of each mask taken out, compiled side by side (one ``nvcc`` each)."""
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+        paths = list(pool.map(
+            lambda mask: build.build(
+                "grid2_cfr", (f"BREAKDOWN={mask}",) if mask else ()),
+            variants.values()))
+    return {name: ctypes.CDLL(str(path))
+            for name, path in zip(variants, paths)}
 
 
 @contextlib.contextmanager
@@ -192,7 +192,7 @@ def solve_args(game, states, use_cfr, net, dtype=torch.bfloat16):
             *states, net, dtype)
 
 
-def mlp_part(src: str, rounds: int, batch: int, dev) -> None:
+def mlp_part(rounds: int, batch: int, dev) -> None:
     game = LiarsDice(1, 4)
     states = random_states(game, batch, dev)
     nets = {ln: CFVNet(game, 256, 2, ln,
@@ -206,7 +206,7 @@ def mlp_part(src: str, rounds: int, batch: int, dev) -> None:
         args = solve_args(g_, random_states(g_, batch, dev), use_cfr, net)
         cells[cell] = (args, grid2p.choose_lane_block(
             *args[:2], net, torch.bfloat16, batch))
-    libs = build_variants(src, VARIANTS, "mlp")
+    libs = build_variants(VARIANTS)
     for rnd in range(rounds):
         for name, lib in libs.items():
             with using(lib):
@@ -230,8 +230,8 @@ def mlp_part(src: str, rounds: int, batch: int, dev) -> None:
                                   "ms": ms}), flush=True)
 
 
-def mlp32_part(src: str, rounds: int, batch: int, dev) -> None:
-    libs = build_variants(src, {"whole": None, **MLP32_VARIANTS}, "mlp32")
+def mlp32_part(rounds: int, batch: int, dev) -> None:
+    libs = build_variants({"whole": 0, **MLP32_VARIANTS})
     cells = {}
     for cell, ((nd, nf), use_cfr, lane_block) in MLP32_CELLS.items():
         game = LiarsDice(nd, nf)
@@ -284,9 +284,8 @@ def mlp32_part(src: str, rounds: int, batch: int, dev) -> None:
                           "ms_1024_iterations": ms * 1024}), flush=True)
 
 
-def body_part(src: str, rounds: int, batch: int, dev) -> None:
-    variants = {"whole": None, **BODY_VARIANTS}
-    libs = build_variants(src, variants, "body")
+def body_part(rounds: int, batch: int, dev) -> None:
+    libs = build_variants({"whole": 0, **BODY_VARIANTS})
     cells = {}
     for cell, ((nd, nf), use_cfr, has_net, lane_block) in BODY_CELLS.items():
         game = LiarsDice(nd, nf)
@@ -310,30 +309,55 @@ def body_part(src: str, rounds: int, batch: int, dev) -> None:
                           flush=True)
 
 
+def ring16_part(rounds: int, batch: int, dev) -> None:
+    libs = build_variants(RING16_VARIANTS)
+    cells = {}
+    for cell, ((nd, nf), use_cfr, layers, lane_block) in RING16_CELLS.items():
+        game = LiarsDice(nd, nf)
+        net = CFVNet(game, 256, layers, True,
+                     generator=torch.Generator().manual_seed(5)).to(dev)
+        args = solve_args(game, random_states(game, batch, dev), use_cfr,
+                          net)
+        if lane_block is None:
+            lane_block = grid2p.choose_lane_block(*args[:2], net,
+                                                  torch.bfloat16, batch)
+        ring = grid2p.kernel_plan(*args[:2], net, torch.bfloat16, batch,
+                                  lane_block).ring
+        cells[cell] = (args, lane_block, ring)
+    for rnd in range(rounds):
+        for name, lib in libs.items():
+            with using(lib):
+                for cell, (args, lane_block, ring) in cells.items():
+                    ms = time_launch(args, reps=2, lane_block=lane_block)
+                    print(json.dumps({"round": rnd, "part": "ring16",
+                                      "variant": name, "cell": cell,
+                                      "lane_block": lane_block,
+                                      "ring": ring, "ms": ms}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--batch", type=int, default=1024)
-    ap.add_argument("--parts", default="mlp,mlp32,body")
+    ap.add_argument("--parts", default="mlp,mlp32,body,ring16")
     args = ap.parse_args(argv)
     parts = [x for x in args.parts.split(",") if x]
-    if any(x not in ("mlp", "mlp32", "body") for x in parts):
-        ap.error(f"--parts takes mlp, mlp32 and body, not {args.parts}")
+    if any(x not in PARTS for x in parts):
+        ap.error(f"--parts takes {', '.join(PARTS)}, not {args.parts}")
     if not torch.cuda.is_available():
         print("mlp_breakdown: CUDA is not available", file=sys.stderr)
         return 1
     from rebel_tpu_torch.bench import card_name_and_power_limit
 
-    src = (build.KERNEL_DIR / "grid2_cfr.cu").read_text()
     print(json.dumps({"card": card_name_and_power_limit()}), flush=True)
     dev = torch.device("cuda")
-    if "mlp" in parts:
-        mlp_part(src, args.rounds, args.batch, dev)
-    if "mlp32" in parts:
-        mlp32_part(src, args.rounds, args.batch, dev)
-    if "body" in parts:
-        body_part(src, args.rounds, args.batch, dev)
+    for part in parts:
+        PARTS[part](args.rounds, args.batch, dev)
     return 0
+
+
+PARTS = {"mlp": mlp_part, "mlp32": mlp32_part, "body": body_part,
+         "ring16": ring16_part}
 
 
 if __name__ == "__main__":

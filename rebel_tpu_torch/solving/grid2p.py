@@ -57,9 +57,10 @@ from rebel_tpu_torch.nets.cfv_net import CFVNet
 from rebel_tpu_torch.solving.grid2b import Grid2BatchSolver, RootCtxB
 from rebel_tpu_torch.solving.params import SubgameSolvingParams
 
-# Net widths the kernel is instantiated for (NH = 128 * columns/thread);
-# another width comes with its check on the card.
-KERNEL_HIDDEN = (256,)
+# The padded hidden width the kernel runs every net at (its NHP), the
+# layers padded with zero columns: one build serves widths 1-256.  Wider
+# nets need another design (ROADMAP Queue 6).
+KERNEL_WIDTH = 256
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 # The tensor-core MLP (bf16 operands): query rows of a warpgroup's tile,
 # warpgroups of a block, and the deepest first layer (Q rounded up to 16).
@@ -73,6 +74,11 @@ WARP_ROWS = 8
 WARPS = 8
 RING_K = 16
 RING_STAGES = 2
+# The bf16 ring, where a net's hidden matrices do not fit beside the
+# lanes' state: stages of RING16_K k rows of a hidden matrix (16 KB at
+# width 256), RING16_STAGES of them per group of warps.
+RING16_K = 32
+RING16_STAGES = 4
 
 
 class Grid2Outputs(NamedTuple):
@@ -254,6 +260,17 @@ def _ceil(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def padded_width(n_hidden: int) -> int:
+    """The width the kernel runs a net of ``n_hidden`` at,
+    :data:`KERNEL_WIDTH`.  Raises ``ValueError`` above 256."""
+    if not 1 <= n_hidden <= KERNEL_WIDTH:
+        raise ValueError(
+            f"the kernel takes hidden widths 1-{KERNEL_WIDTH}, not "
+            f"{n_hidden}: wider nets need another design of its bf16 MLP "
+            f"(ROADMAP Queue 6)")
+    return KERNEL_WIDTH
+
+
 def _core_matrices(w: torch.Tensor, n_pad: int, k_pad: int) -> torch.Tensor:
     """``w [N, K]`` zero-padded to ``[n_pad, k_pad]`` and cut into 8 x 8
     core matrices ``[n_pad / 8, k_pad / 8, 8, 8]``: the byte order in which
@@ -265,54 +282,96 @@ def _core_matrices(w: torch.Tensor, n_pad: int, k_pad: int) -> torch.Tensor:
 
 def mlp_block_shapes(game: LiarsDice, n_hidden: int, n_layers: int):
     """``[(N, K), ...]`` of the weights in the bf16 MLP block, hidden layers
-    then the head, padded as the kernel reads them: K of the first layer is
-    the query size rounded up to 16, N of the head the hands rounded up to
-    8."""
+    then the head, padded as the kernel reads them at width ``n_hidden``
+    (the padded width): K of the first layer is the query size rounded up
+    to 16, N of the head the hands rounded up to 8."""
     k0, hn = _ceil(game.query_size, 16), _ceil(game.num_hands, 8)
     return ([(n_hidden, k0 if k == 0 else n_hidden) for k in range(n_layers)]
             + [(hn, n_hidden)])
 
 
 def mlp_block_bytes(game: LiarsDice, n_hidden: int, n_layers: int) -> int:
-    """Bytes of :func:`pack_mlp_weights`'s block: bf16 weights, then f32
-    bias, LayerNorm scale and bias of each hidden layer and the head's
-    bias."""
+    """Bytes of :func:`pack_mlp_weights`'s block at width ``n_hidden``
+    (either order): bf16 weights, then f32 bias, LayerNorm scale and bias
+    of each hidden layer and the head's bias."""
     shapes = mlp_block_shapes(game, n_hidden, n_layers)
     return (sum(2 * n * k for n, k in shapes)
             + 4 * (3 * n_layers * n_hidden + shapes[-1][0]))
 
 
+def mlp_resident_bytes(game: LiarsDice, n_hidden: int, n_layers: int,
+                       ring: bool) -> int:
+    """Bytes of the block that shared memory keeps for a launch: all of
+    it, or with the ring the first layer, the head and the f32
+    parameters."""
+    whole = mlp_block_bytes(game, n_hidden, n_layers)
+    return whole - 2 * (n_layers - 1) * n_hidden * n_hidden if ring else whole
+
+
+def _pad(x: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``x`` zero-padded at the end of each dimension to ``shape``."""
+    pads = []
+    for have, want in zip(reversed(x.shape), reversed(shape)):
+        pads += [0, want - have]
+    return torch.nn.functional.pad(x, pads)
+
+
 @torch.no_grad()
-def pack_mlp_weights(net: CFVNet) -> torch.Tensor:
-    """The net as the kernel's bf16 MLP keeps it in shared memory: one
-    ``uint8`` block on the net's device that the kernel copies as it is.
-    Per hidden layer, then the head: ``weight [N, K]`` (the transpose of
-    the product's ``[K, N]``) rounded to bf16, zero-padded to
-    :func:`mlp_block_shapes` and cut by :func:`_core_matrices`; then in
-    f32 each hidden layer's bias, LayerNorm scale and LayerNorm bias (zeros
-    without LayerNorm) and the head's bias, zero-padded to its N."""
-    shapes = mlp_block_shapes(net.game, net.n_hidden, net.n_layers)
-    layers = [lin for lin, _ in net.hidden_layers()] + [net.output]
-    parts = [_core_matrices(lin.weight.float(), n, k).to(torch.bfloat16)
-             .reshape(-1).view(torch.uint8)
-             for lin, (n, k) in zip(layers, shapes)]
+def pack_f32_params(net: CFVNet, width: int) -> torch.Tensor:
+    """The f32 parameters of the net at ``width`` (its own or wider):
+    each hidden layer's bias, LayerNorm scale and LayerNorm bias (zeros
+    without LayerNorm), then the head's bias padded to the hands rounded
+    up to 8, every part zero-padded.  Both MLPs read them so."""
     f32 = []
     for lin, ln in net.hidden_layers():
         zero = torch.zeros_like(lin.bias)
-        f32 += [lin.bias, zero if ln is None else ln.weight,
-                zero if ln is None else ln.bias]
-    hn = shapes[-1][0]
-    f32.append(torch.nn.functional.pad(net.output.bias, (0, hn - len(
-        net.output.bias))))
-    parts.append(torch.cat([x.float() for x in f32]).view(torch.uint8))
-    return torch.cat(parts)
+        f32 += [_pad(x.float(), width) for x in (
+            lin.bias, zero if ln is None else ln.weight,
+            zero if ln is None else ln.bias)]
+    f32.append(_pad(net.output.bias.float(), _ceil(net.game.num_hands, 8)))
+    return torch.cat(f32)
+
+
+@torch.no_grad()
+def pack_mlp_weights(net: CFVNet, width: int | None = None,
+                     ring: bool = False) -> torch.Tensor:
+    """The net as the kernel's bf16 MLP reads it at ``width`` (default:
+    the net's own; the kernel's is :data:`KERNEL_WIDTH`): one ``uint8``
+    block on the net's device.  Per hidden layer, then the head: ``weight
+    [N, K]`` (the transpose of the product's ``[K, N]``) rounded to bf16,
+    zero-padded to :func:`mlp_block_shapes` and cut by
+    :func:`_core_matrices`; then :func:`pack_f32_params`.  ``ring``: the
+    order the kernel's bf16 ring reads, the part it keeps resident first
+    (the first layer, the head, the f32 parameters), then hidden layers 1
+    .. NL - 1 as the ring's slabs, :data:`RING16_K` k rows of a layer at a
+    time, each slab cut into core matrices ``[N / 8][RING16_K / 8][8][8]``.
+    """
+    width = width or net.n_hidden
+    if width < net.n_hidden:
+        raise ValueError(f"width {width} is narrower than the net's "
+                         f"{net.n_hidden}")
+    shapes = mlp_block_shapes(net.game, width, net.n_layers)
+    layers = [lin for lin, _ in net.hidden_layers()] + [net.output]
+    mats = [_core_matrices(lin.weight.float(), n, k).to(torch.bfloat16)
+            for lin, (n, k) in zip(layers, shapes)]
+    f32 = pack_f32_params(net, width)
+    if ring:
+        # [N / 8, K / 8, 8, 8] -> [K / RING16_K, N / 8, RING16_K / 8, 8, 8]
+        slabs = [m.reshape(width // 8, width // RING16_K, RING16_K // 8, 8, 8)
+                 .permute(1, 0, 2, 3, 4) for m in mats[1:-1]]
+        mats = [mats[0], mats[-1]]
+    else:
+        slabs = []
+    as_bytes = lambda t: t.contiguous().reshape(-1).view(torch.uint8)
+    return torch.cat([as_bytes(m) for m in mats] + [f32.view(torch.uint8)]
+                     + [as_bytes(m) for m in slabs])
 
 
 def mlp32_words(game: LiarsDice, n_hidden: int) -> int:
-    """4-byte words the f32 MLP keeps in shared memory for the launch: the
-    first layer ``[Qpad, N]`` (the query size rounded up to 4; the hidden
-    layers stream through the ring, and the head and the f32 parameters
-    are read through the L1 cache)."""
+    """4-byte words the f32 MLP keeps in shared memory for the launch at
+    width ``n_hidden``: the first layer ``[Qpad, N]`` (the query size
+    rounded up to 4; the hidden layers stream through the ring, and the
+    head and the f32 parameters are read through the L1 cache)."""
     return _ceil(game.query_size, 4) * n_hidden
 
 
@@ -328,20 +387,44 @@ def pack_f32_rows(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(k, 2, 4, 32).permute(0, 1, 3, 2).contiguous()
 
 
+@torch.no_grad()
+def pack_f32_net(net: CFVNet, width: int) -> tuple:
+    """The net as the kernel's f32 MLP reads it at ``width`` (its own or
+    wider), on the net's device: the first layer ``[Qpad, N]``
+    (rows padded to the query size rounded up to 4) and the hidden layers
+    1 .. NL - 1 one after another ``[(NL - 1) N, N]`` (None for one hidden
+    layer), each in the row order of :func:`pack_f32_rows`; the head
+    ``[N, H]`` row-major; :func:`pack_f32_params`.  Every tensor is fresh,
+    so 16-byte aligned for the kernel's bulk copies."""
+    qpad = _ceil(net.game.query_size, 4)
+    mats = [lin.weight.float().T for lin, _ in net.hidden_layers()]
+    hidden = None
+    if len(mats) > 1:
+        hidden = torch.cat([pack_f32_rows(_pad(w, width, width))
+                            for w in mats[1:]])
+    return (pack_f32_rows(_pad(mats[0], qpad, width)), hidden,
+            _pad(net.output.weight.float().T, width,
+                 net.game.num_hands).contiguous(),
+            pack_f32_params(net, width))
+
+
 def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
                 n_hidden: int, n_layers: int, bf16: bool,
-                groups: int = 1, optimistic: bool = False) -> dict:
+                groups: int = 1, optimistic: bool = False,
+                ring: bool = False) -> dict:
     """Bytes of a block's shared memory by part, as the kernel's
-    ``make_layout()`` lays it out (the wrapper holds the two equal on the
-    card): ``mlp`` (with a net: the weights kept for the launch and their
-    barrier; bf16 the packed MLP block, f32 :func:`mlp32_words`),
+    ``make_layout()`` lays it out at the padded width ``n_hidden`` (the
+    wrapper holds the two equal on the card): ``mlp`` (with a net: the
+    weights kept for the launch and their barrier; bf16 the packed MLP
+    block, or with ``ring`` its resident part, f32 :func:`mlp32_words`),
     ``tables`` (pair tables and payoff), ``lanes`` (the solver state of
     all lanes: FP keeps its last best response only when ``optimistic``;
     with a net the leaf values share the staging rows and the level-1
     values the second ones), ``rows`` (f32: each warp's
     :data:`WARP_ROWS` activation rows), ``ring`` (f32 with hidden layers
-    to stream: each group's
-    :data:`RING_STAGES` stages of :data:`RING_K` weight rows, their
+    to stream: each group's :data:`RING_STAGES` stages of :data:`RING_K`
+    weight rows, their barriers and counts; bf16 with ``ring``: each
+    group's :data:`RING16_STAGES` stages of :data:`RING16_K` rows, their
     barriers and counts) and ``total``.  ``n_layers`` 0: no net.
     ``mlp_chunks`` does not change it."""
     A, H = game.num_actions, game.num_hands
@@ -350,9 +433,14 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
     net = n_layers > 0
     mma = net and bf16
     fma = net and not bf16
+    ring16 = mma and ring
+    if ring and not (mma and n_layers > 1):
+        raise ValueError("the ring streams the hidden layers of a bf16 net "
+                         "of two or more")
     mlp = 0
     if mma:
-        mlp = words(mlp_block_bytes(game, n_hidden, n_layers) // 4, 2)
+        mlp = words(mlp_resident_bytes(game, n_hidden, n_layers, ring) // 4,
+                    2)
     elif fma:
         mlp = words(mlp32_words(game, n_hidden), 2)
     tables = words(P, P, A * A, A * H * H)
@@ -368,10 +456,16 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
         state += [LB * H * A, LB * A * H * A]
     lanes = words(*state)
     rows = words(WARPS // groups * WARP_ROWS * n_hidden) if fma else 0
-    ring = (words(RING_STAGES * RING_K * n_hidden, 3 * RING_STAGES)
-            if fma and n_layers > 1 else 0)
+    if ring16:  # the stages are the block's, the barriers each group's
+        stages = words(groups * RING16_STAGES * RING16_K * n_hidden // 2)
+        ring_words = stages + groups * words(3 * RING16_STAGES)
+    elif fma and n_layers > 1:
+        ring_words = groups * words(RING_STAGES * RING_K * n_hidden,
+                                    3 * RING_STAGES)
+    else:
+        ring_words = 0
     parts = dict(mlp=mlp, tables=tables, lanes=groups * lanes,
-                 rows=groups * rows, ring=groups * ring)
+                 rows=groups * rows, ring=ring_words)
     parts["total"] = sum(parts.values())
     return {k: 4 * v for k, v in parts.items()}
 
@@ -537,6 +631,7 @@ class KernelPlan(NamedTuple):
     mlp_chunks: int
     bf16: bool  # bf16 operands (with a net: the tensor-core MLP)
     smem: int  # bytes of shared memory a block takes
+    ring: bool = False  # bf16: the hidden layers stream through the ring
 
 
 def kernel_plan(game: LiarsDice, params: SubgameSolvingParams,
@@ -545,9 +640,18 @@ def kernel_plan(game: LiarsDice, params: SubgameSolvingParams,
                 interleave: int = 1, gelu: str = "auto",
                 ablate: str = "") -> KernelPlan:
     """What :func:`solve` launches for these options, worked out before
-    anything is built or launched.  Raises ``ValueError`` on an option the
-    kernel does not take and on a layout that does not fit a block's
-    shared memory (never shrinks the lane block, never falls back)."""
+    anything is built or launched.  A bf16 net keeps its weights resident
+    where that layout fits a block's shared memory, and else streams its
+    hidden layers through the ring where that fits.  Raises ``ValueError``
+    on an option or a net the kernel does not take (a width over 256) and
+    on a layout that does not fit even with the ring (never shrinks the
+    lane block, never falls back)."""
+    return _plan(game, params, net, net_compute_dtype, batch, lane_block,
+                 mlp_chunks, interleave, gelu, ablate, allow_ring=True)
+
+
+def _plan(game, params, net, net_compute_dtype, batch, lane_block,
+          mlp_chunks, interleave, gelu, ablate, allow_ring) -> KernelPlan:
     act, groups = _check_knobs(params, net, net_compute_dtype, lane_block,
                                mlp_chunks, interleave, gelu, ablate)
     if net_compute_dtype not in (torch.float32, torch.bfloat16):
@@ -561,14 +665,13 @@ def kernel_plan(game: LiarsDice, params: SubgameSolvingParams,
             f"warp: it takes at most 32 of each, not {game.num_hands} hands "
             f"and {game.num_actions} actions")
     bf16 = net_compute_dtype == torch.bfloat16
-    n_hidden = n_layers = 0
+    n_layers = 0
     if net is not None:
-        n_hidden, n_layers = net.n_hidden, net.n_layers
-        if n_hidden not in KERNEL_HIDDEN or not 1 <= n_layers <= 8:
-            raise ValueError(
-                f"the kernel takes 1-8 hidden layers of width "
-                f"{KERNEL_HIDDEN}, not {n_layers} x {n_hidden}"
-            )
+        n_layers = net.n_layers
+        padded_width(net.n_hidden)
+        if n_layers < 1:
+            raise ValueError("the kernel takes nets of one hidden layer "
+                             "or more")
         if bf16 and _ceil(game.query_size, 16) > MAX_K0:
             raise ValueError(
                 f"the tensor-core MLP takes queries of up to {MAX_K0} "
@@ -577,14 +680,20 @@ def kernel_plan(game: LiarsDice, params: SubgameSolvingParams,
     if mlp_chunks is None:
         mlp_chunks = default_mlp_chunks(len(pseudo_leaf_pairs(game)),
                                         lane_block, groups, mma)
-    need = smem_layout(game, lane_block, params.use_cfr, n_hidden, n_layers,
-                       bf16, groups, params.optimistic)["total"]
+    layout = lambda ring: smem_layout(
+        game, lane_block, params.use_cfr, KERNEL_WIDTH, n_layers, bf16,
+        groups,
+        params.optimistic, ring)["total"]
+    need, ring = layout(False), False
+    can_ring = mma and n_layers > 1
+    if need > SMEM_LIMIT and can_ring and allow_ring:
+        need, ring = layout(True), True
     if need > SMEM_LIMIT:
-        more = " or fewer hidden layers" if mma else ""
+        how = " with the bf16 ring" if ring else ""
         raise ValueError(
             f"lane_block {lane_block} needs {need} B of shared memory per "
-            f"block, more than {SMEM_LIMIT}; use a smaller lane_block{more}")
-    return KernelPlan(act, groups, mlp_chunks, bf16, need)
+            f"block{how}, more than {SMEM_LIMIT}; use a smaller lane_block")
+    return KernelPlan(act, groups, mlp_chunks, bf16, need, ring)
 
 
 # Lane blocks choose_lane_block tries, largest first.  Blocks above 8 fit
@@ -597,10 +706,12 @@ def choose_lane_block(game: LiarsDice, params: SubgameSolvingParams,
                       batch: int, interleave: int = 1, gelu: str = "auto",
                       ablate: str = "", mlp_chunks: int | None = None) -> int:
     """The largest of :data:`LANE_BLOCKS` that divides ``batch`` and whose
-    layout fits a block's shared memory (:func:`kernel_plan`); with
-    ``interleave=2`` where it applies, only even blocks.  Chosen before
-    anything is built or launched; raises ``kernel_plan``'s
-    ``ValueError`` for the smallest candidate when none fits."""
+    layout fits a block's shared memory with the weights resident; only
+    where no block fits so, the largest that fits with the bf16 ring
+    (:func:`kernel_plan`).  With ``interleave=2`` where it applies, only
+    even blocks.  Chosen before anything is built or launched; raises
+    ``kernel_plan``'s ``ValueError`` for the smallest candidate when none
+    fits."""
     groups = effective_interleave(params, net is not None, interleave, None)
     blocks = [lb for lb in LANE_BLOCKS
               if batch % lb == 0 and lb % groups == 0]
@@ -608,17 +719,15 @@ def choose_lane_block(game: LiarsDice, params: SubgameSolvingParams,
         raise ValueError(f"no lane block of {LANE_BLOCKS} divides batch "
                          f"{batch}" + (" into even blocks" if groups == 2
                                        else ""))
-    plan = lambda lb: kernel_plan(game, params, net, net_compute_dtype,
-                                  batch, lb, mlp_chunks, interleave, gelu,
-                                  ablate)
-    for lb in blocks[:-1]:
-        try:
-            plan(lb)
-            return lb
-        except ValueError:
-            pass
-    plan(blocks[-1])  # raises when not even the smallest fits
-    return blocks[-1]
+    for allow_ring in (False, True):
+        for lb in blocks:
+            try:
+                _plan(game, params, net, net_compute_dtype, batch, lb,
+                      mlp_chunks, interleave, gelu, ablate, allow_ring)
+                return lb
+            except ValueError:
+                if allow_ring and lb == blocks[-1]:
+                    raise  # not even the smallest fits
 
 
 @torch.no_grad()
@@ -655,8 +764,6 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
                                        mlp_chunks)
     plan = kernel_plan(game, params, net, net_compute_dtype, B, lane_block,
                        mlp_chunks, interleave, gelu, ablate)
-    from rebel_tpu_torch.kernels import build
-
     A, H, F = game.num_actions, game.num_hands, game.num_faces
     Q = game.query_size
     Qpad = (Q + 3) // 4 * 4
@@ -677,29 +784,16 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     snap1 = torch.empty((B, A, H, A), dtype=torch.float32, device=dev)
     keep += [rvm, snap0, snap1]
 
-    n_hidden = n_layers = 0
+    n_hidden = n_layers = ln = 0
+    width = KERNEL_WIDTH
     if net is not None:
         n_hidden, n_layers = net.n_hidden, net.n_layers
-        # f32: the hidden layers' weights [K, N] by pack_f32_rows (fresh,
-        # so 16-byte aligned for the kernel's bulk copies), the head's
-        # [N, H] row-major, the biases and LayerNorm parameters; bf16
-        # weights go in the packed block, which holds the biases and
-        # LayerNorm parameters too (the kernel reads ln_scale only for
-        # whether the layer has LayerNorm).
-        for k, (lin, ln) in enumerate(net.hidden_layers()):
-            w = None
-            if not mma:
-                w = lin.weight.detach().T.to(device=dev, dtype=torch.float32)
-                if k == 0:  # pad the input rows to a multiple of 4
-                    w = torch.cat([w, w.new_zeros(Qpad - Q, n_hidden)])
-                w = pack_f32_rows(w)
-            keep += [w, f32(lin.bias.detach())]
-            keep += ([f32(ln.weight.detach()), f32(ln.bias.detach())]
-                     if ln is not None else [None, None])
-        keep += [None if mma else f32(net.output.weight.detach().T),
-                 f32(net.output.bias.detach())]
-        if mma:
-            keep.append(pack_mlp_weights(net).to(dev))
+        ln = int(net.hidden_layers()[0][1] is not None)
+        if mma:  # the packed block holds the weights and f32 parameters
+            keep.append(pack_mlp_weights(net, width, plan.ring).to(dev))
+        else:
+            keep += [None if x is None else f32(x)
+                     for x in pack_f32_net(net, width)]
 
     ints = [B, lane_block, A, H, F, game.total_num_dice, Q, Qpad, n_hidden,
             n_layers, params.num_iters, int(params.linear_update),
@@ -710,7 +804,10 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     # The multipliers are unsigned 32-bit: passed as the ints of their bits.
     ints += [m - 2**32 if m >= 2**31 else m
              for m in work_split(game, lane_block // plan.groups)]
+    ints += [width, ln, int(plan.ring)]
     c_ints = (ctypes.c_int * len(ints))(*ints)
+    from rebel_tpu_torch.kernels import build
+
     lib = build.load("grid2_cfr")
     _declare(lib)
     smem = lib.grid2_cfr_smem_bytes(c_ints)
@@ -721,7 +818,8 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     ptrs = (ctypes.c_void_p * len(keep))(
         *[0 if t is None else t.data_ptr() for t in keep]
     )
-    floats = (ctypes.c_float * 2)(params.dcfr_alpha, params.dcfr_beta)
+    floats = (ctypes.c_float * 3)(params.dcfr_alpha, params.dcfr_beta,
+                                  1.0 / n_hidden if n_hidden else 0.0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     name = kernel_name(params, net is not None, plan.groups)
     events = None

@@ -290,17 +290,19 @@ def test_f32_layout_by_game(dice, faces, use_cfr):
 
 @pytest.mark.parametrize(
     "kw,match",
-    [(dict(dtype=torch.bfloat16, n_layers=3), "shared memory"),
+    [(dict(dtype=torch.bfloat16, n_layers=3, lane_block=32),
+      "shared memory"),
      (dict(dtype=torch.bfloat16, use_cfr=False, lane_block=32),
       "shared memory"),
      (dict(dtype=torch.bfloat16, lane_block=32), "shared memory"),
      (dict(dtype=torch.float32, use_cfr=False, lane_block=32),
       "shared memory"),
      (dict(dtype=torch.float16), "float32 or bfloat16"),
-     (dict(dtype=torch.bfloat16, n_hidden=128), "width")])
+     (dict(dtype=torch.bfloat16, n_hidden=512), "256")])
 def test_plan_raises_before_any_launch(kw, match):
-    """Layouts that do not fit and nets the kernel does not take raise in
-    kernel_plan, which needs no card: solve calls it before it builds or
+    """Layouts that do not fit (even with the bf16 ring) and nets the
+    kernel does not take (wider than 256) raise in kernel_plan, which
+    needs no card: solve calls it before it builds or
     launches anything, and never shrinks the lane block to make one fit."""
     net = _net(n_hidden=kw.get("n_hidden", 256),
                n_layers=kw.get("n_layers", 2))
@@ -366,22 +368,30 @@ def test_default_mlp_chunks_minimises_turns(n_pairs, lanes, warpgroups, mma):
 
 
 def test_source_edits_of_the_chip_scripts_apply():
-    """The breakdown's variants and ``chip_mutants.py``'s mutants each edit
-    one line of the kernel, which must occur exactly once in it (the
-    scripts refuse to run otherwise, but only on the card)."""
+    """The breakdown's variants take out parts by the kernel's own
+    switches (``-DBREAKDOWN=`` a mask of its ``CUT_*`` defines, each used
+    in the source), and ``chip_mutants.py``'s mutants each edit one line of
+    the kernel, which must occur exactly once in it (the script refuses
+    to run otherwise, but only on the card)."""
     import importlib.util
     import pathlib
+    import re
 
     from rebel_tpu_torch import mlp_breakdown
     from rebel_tpu_torch.kernels import build
 
     src = (build.KERNEL_DIR / "grid2_cfr.cu").read_text()
+    cuts = {k: int(v) for k, v in re.findall(r"#define CUT_(\w+) (\d+)",
+                                             src)}
+    assert cuts == mlp_breakdown.CUTS
+    for name in cuts:
+        assert f"CUT(CUT_{name})" in src, name
     for variants in (mlp_breakdown.VARIANTS, mlp_breakdown.MLP32_VARIANTS,
-                     mlp_breakdown.BODY_VARIANTS):
-        for name, edits in variants.items():
-            assert name == "whole" or edits, name
-            for old, new in edits or ():
-                assert src.count(old) == 1 and old != new, name
+                     mlp_breakdown.BODY_VARIANTS,
+                     mlp_breakdown.RING16_VARIANTS):
+        for name, mask in variants.items():
+            assert (mask == 0) == (name == "whole"), name
+            assert mask in cuts.values() or mask == 0, name
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_mutants.py"
     spec = importlib.util.spec_from_file_location("chip_mutants", path)
     mutants = importlib.util.module_from_spec(spec)
@@ -410,7 +420,8 @@ def test_lane_block_is_chosen_from_the_game_and_the_batch(dice, faces,
                                                           batch):
     """Every game of ``eval_all``'s defaults, CFR and FP, bf16 and f32: the
     chosen block is the largest of 8, 4, 2, 1 that fits (always 8 at
-    1x4f), the plan at it fits, and the next larger block does not."""
+    1x4f), the plan at it fits with the weights resident, and the next
+    larger block does not: in f32 it raises, in bf16 it takes the ring."""
     game = LiarsDice(dice, faces)
     net = _net(game)
     want = iter(CHOSEN_LANE_BLOCK[dice, faces])
@@ -419,12 +430,16 @@ def test_lane_block_is_chosen_from_the_game_and_the_batch(dice, faces,
             lb = grid2p.choose_lane_block(game, _params(use_cfr), net, dtype,
                                           batch)
             assert lb == next(want)
-            assert grid2p.kernel_plan(game, _params(use_cfr), net, dtype,
-                                      batch, lb).smem <= grid2p.SMEM_LIMIT
-            if lb < 8:
+            plan = grid2p.kernel_plan(game, _params(use_cfr), net, dtype,
+                                      batch, lb)
+            assert plan.smem <= grid2p.SMEM_LIMIT and not plan.ring
+            if lb < 8 and dtype == torch.float32:
                 with pytest.raises(ValueError, match="shared memory"):
                     grid2p.kernel_plan(game, _params(use_cfr), net, dtype,
                                        batch, 2 * lb)
+            elif lb < 8:
+                assert grid2p.kernel_plan(game, _params(use_cfr), net, dtype,
+                                          batch, 2 * lb).ring
 
 
 def test_lane_block_choice_follows_the_batch_and_interleave():
@@ -442,6 +457,8 @@ def test_lane_block_choice_follows_the_batch_and_interleave():
     with pytest.raises(ValueError, match="shared memory"):
         grid2p.kernel_plan(LiarsDice(2, 3), _params(False), _net(
             LiarsDice(2, 3)), torch.bfloat16, 1024, 8)
+    # The ring keeps the f32 parameters resident (3 KB a layer at width
+    # 256), so a deep enough bf16 net fits no block even with the ring.
     with pytest.raises(ValueError, match="lane_block 1 .* shared memory"):
-        grid2p.choose_lane_block(GAME, _params(True), _net(n_layers=3),
+        grid2p.choose_lane_block(GAME, _params(True), _net(n_layers=64),
                                  torch.bfloat16, 1024)

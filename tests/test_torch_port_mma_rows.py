@@ -80,8 +80,10 @@ def test_two_by_three_fp_fits_lane_block_two_in_one_block():
 
 
 # The lane block chosen at 1024 lanes, bf16, CFR and FP: the largest one
-# block holds.
+# block holds with the weights resident (256x2), and with the bf16 ring
+# where none holds them (256x3).
 CHOSEN = {(1, 4): 8, (1, 5): 8, (1, 6): 4, (2, 3): 2}
+CHOSEN_RING = {(1, 4): 8, (1, 5): 8, (1, 6): 8, (2, 3): 4}
 
 
 @pytest.mark.parametrize("use_cfr", [True, False])
@@ -96,29 +98,39 @@ def test_choice_of_lane_block(dice, faces, use_cfr):
                               1024, lb)
     assert plan.smem == grid2p.smem_layout(game, lb, use_cfr, 256, 2,
                                            True)["total"] <= LIMIT
-    if lb < 8:
-        with pytest.raises(ValueError, match="shared memory"):
-            grid2p.kernel_plan(game, _params(use_cfr), net, torch.bfloat16,
-                               1024, 2 * lb)
-    # A bf16 net of 3 hidden layers fits no lane block: the choice raises
-    # kernel_plan's error for lane block 1.
+    assert not plan.ring
+    if lb < 8:  # the next block streams the hidden layers instead
+        assert grid2p.kernel_plan(game, _params(use_cfr), net,
+                                  torch.bfloat16, 1024, 2 * lb).ring
+    # A bf16 net of 3 hidden layers fits no lane block with its weights
+    # resident: the choice takes the largest block the ring fits, and 2x3f
+    # at lane block 8 does not fit even with the ring.
     deep = CFVNet(game, 256, 3, True,
                   generator=torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match="lane_block 1 .* fewer hidden"):
-        grid2p.choose_lane_block(game, _params(use_cfr), deep,
-                                 torch.bfloat16, 1024)
+    lb = grid2p.choose_lane_block(game, _params(use_cfr), deep,
+                                  torch.bfloat16, 1024)
+    assert lb == CHOSEN_RING[dice, faces]
+    assert grid2p.kernel_plan(game, _params(use_cfr), deep, torch.bfloat16,
+                              1024, lb).ring
+    if (dice, faces) == (2, 3):
+        with pytest.raises(ValueError, match="lane_block 8 .* bf16 ring"):
+            grid2p.kernel_plan(game, _params(use_cfr), net, torch.bfloat16,
+                               1024, 8)
 
 
 def test_optimistic_fp_keeps_its_last_response():
     """The optimistic FP keeps last0/last1: at 2x3f lane block 2 still
-    fits, 4 does not."""
+    fits with the weights resident, 4 only with the bf16 ring, 8 not
+    at all."""
     game = LiarsDice(2, 3)
     params = _params(False, optimistic=True)
     net = _net(game)
     assert grid2p.choose_lane_block(game, params, net, torch.bfloat16,
                                     1024) == 2
+    assert grid2p.kernel_plan(game, params, net, torch.bfloat16, 1024,
+                              4).ring
     with pytest.raises(ValueError, match="shared memory"):
-        grid2p.kernel_plan(game, params, net, torch.bfloat16, 1024, 4)
+        grid2p.kernel_plan(game, params, net, torch.bfloat16, 1024, 8)
 
 
 # Rows of a chunk at the launches of the larger games: lane block x
