@@ -32,6 +32,7 @@ CFR_PHASES = "exploit-check"
 KNOB_PHASES = "knob-checks"
 CHECK_PHASES = "cfr-checks,fp-checks"
 WIDTH_PHASES = "widths"
+LARGE_PHASES = "large-games"
 # What the CUDA runtime prints when the card stops a faulty kernel.
 KERNEL_FAULTS = ("illegal memory access", "illegal instruction",
                  "misaligned address", "unspecified launch failure",
@@ -173,6 +174,20 @@ MUTANTS = {
         "const float inv_n = p.inv_nh;  // 1 / the net's own width",
         "const float inv_n = 1.0f / NH;  // 1 / the net's own width",
         WIDTH_PHASES),
+    # Rows wider than a warp: the reach phase's sums over an item's hands
+    # leave out every lane's second value (hands 32 and on; 2x6f has 36).
+    # The workspace: its launches read the reach phase's staging rows and
+    # reaches without the group's barrier after that phase (the
+    # shared-memory launches keep it).
+    "wide-row-second-value": (
+        "for (int hh = 32; hh < H; ++hh) {",
+        "for (int hh = 32; hh < 32; ++hh) {",
+        LARGE_PHASES),
+    "workspace-barrier-dropped": (
+        "        gsync();\n\n        // ---- 2. terminal values",
+        "        if constexpr (!WS) gsync();\n\n"
+        "        // ---- 2. terminal values",
+        LARGE_PHASES),
 }
 
 
@@ -183,7 +198,8 @@ def run(name: str) -> str:
         shutil.copytree(
             ROOT / "rebel_tpu_torch", tmp / "rebel_tpu_torch",
             ignore=shutil.ignore_patterns("_build", "__pycache__"))
-        shutil.copy(ROOT / "chip_smoke.py", tmp / "chip_smoke.py")
+        for script in ("chip_smoke.py", "chip_studies.py"):
+            shutil.copy(ROOT / script, tmp / script)
         for ckpt in ("r4_1x4cfr/ckpt/epoch990.params",
                      "r5_1x4fp/ckpt/epoch800.params"):
             dst = tmp / "results" / "liars_sp" / ckpt

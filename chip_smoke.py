@@ -10,8 +10,11 @@ an H100, ``sm_90a``).  It
    solve (``rebel_tpu_torch/kernels/grid2_cfr.cu``: the CFR kernel
    ``grid2_cfr``, the fictitious-play kernel ``grid2_fp`` and the
    two-group CFR kernel ``grid2_cfr_il2``, each in f32, with bf16
-   operands and with bf16 operands on the bf16 ring: nine
-   instantiations, every net at the padded width 256) with ``nvcc``; prints each instantiation's registers, spills
+   operands and with bf16 operands on the bf16 ring, each with and
+   without the device workspace: eighteen instantiations, every net at
+   the padded width 256) with ``nvcc``, one unit an instantiation, side
+   by side; prints
+   each instantiation's registers, spills
    and shared memory at lane block 8, and the tensor-core instructions
    (``HGMMA``, ``HMMA``) in its machine code: ``HGMMA`` in every bf16
    instantiation, neither in an f32 one;
@@ -22,7 +25,7 @@ an H100, ``sm_90a``).  It
    GELU, DCFR (plain and clamped), CFR without discounts, and 1 and 3
    hidden layers; over 4 iterations to an absolute limit and over 64 iterations
    (1024 without a net) by statistics limited by a
-   plain(card)-vs-plain(cpu) control;
+   plain(card)-vs-plain(cpu) control on 64 of the 256 lanes;
 3. ``fp-checks``: the same for ``grid2_fp``: plain, linear and optimistic
    linear FP, no net, bf16;
 4. ``cfr-selfplay``: trains the 1x4f 256x2 CFR self-play trainer at full
@@ -127,14 +130,30 @@ an H100, ``sm_90a``).  It
    ``model.kwargs.n_layers=3`` (generation through the bf16 ring, the
    exploit evaluation at epoch 0 through the f32 kernel, both counted),
    and the README's quick run at ``model.kwargs.n_hidden=32`` on the card;
-19. prints the whole run's seconds, one ``{"kernels": [...]}`` line with
+19. ``large-games``: the games of up to 64 hands and 64 actions with
+   fresh 256x2 nets from a seed: 2x5f, 3x3f and 2x6f (CFR and FP, bf16
+   and f32, on the device workspace) on 256 lanes against the plain
+   version over 4 iterations (but where two correct plain versions part
+   beyond the limit, BF16_LONG_ONLY) and over 64 by the statistics against
+   a control (f32: the plain version on the CPU; bf16: the plain version
+   with the tensor cores' chained sums), with the plan, a timed launch of
+   1024 lanes x 1024 iterations beside its bound; the boundary games 3x4f
+   (64 hands) and 1x16f (33 actions) on 64 lanes; and the workspace forced
+   to its deepest level held to the default layout bit for bit over 1024
+   iterations (WORKSPACE_BITS: 1x4f and 2x3f, CFR and FP, bf16 and f32,
+   ``interleave=2``, 2x6f);
+20. ``run-entry-2x6``: the run entry with the round-5 overrides at
+   ``env.num_dice=2 env.num_faces=6``: burn-in and one epoch through
+   ``grid2_cfr`` on the workspace layout, and the checkpoint;
+21. prints the whole run's seconds, one ``{"kernels": [...]}`` line with
    the three kernels (each with its lane block at the main path's shapes,
    its instantiations, and, under ``modes``, the larger games' and the new
    paths' timed launches with theirs) and ``{"ok": true, "device":
    {...}}`` as the last line.
 
 The launch counts of the kernels are set to 0 just before each of the
-paths (4, 6 for each net, 8, 10, each run of 11, 14, 16a, 18) and read
+paths (4, 6 for each net, 8, 10, each run of 11, 14, 16a, 18, 19, 20)
+and read
 just after; a kernel that a path should run and did not fails the run.  In 11,
 ``grid2_cfr`` must run in generation (bf16) and in the evaluation (f32).
 In 16b each rank counts its own launches, which the run entry writes
@@ -241,6 +260,10 @@ TOL_FP_BF16 = 1e-4
 FP_LONG_LIMIT = {"rvm_mean": 1e-6, "rvm_max": 1.5e-3, "lanes": 0.02}
 FP_LONG_FACTOR = {"rvm_mean": 10.0, "rvm_max": 10.0, "lanes": 4.0}
 CONTROL_LANES = 64  # lanes of the 1024-iteration control run on the CPU
+# Lanes of cfr-checks' and fp-checks' controls on the CPU: the first of
+# their 256 (ROADMAP Queue 5 item 5: the controls took most of the two
+# phases).
+CHECK_CONTROL_LANES = 64
 
 # The evaluation (phase 6).  Exploitabilities that the JAX package
 # measured on the same two nets (results/PROTOCOL.md): the full-tree
@@ -309,17 +332,17 @@ KNOB_CHUNKS = {8: (2, 4, 7, 28), 2: (1, 2), 1: (28,)}
 # names' template arguments (FP, NG), and the MLP's operands WT with the
 # bf16 ring or not (the f32 ones also run without a net): nine.
 INSTANTIATION = re.compile(
-    r"grid2_kernelI(13__nv_bfloat16|f)Lb([01])ELi([12])ELb([01])E")
+    r"grid2_kernelI(13__nv_bfloat16|f)Lb([01])ELi([12])ELb([01])ELb([01])E")
 KERNEL_OF = {("0", "1"): "grid2_cfr", ("1", "1"): "grid2_fp",
              ("0", "2"): "grid2_cfr_il2"}
 OPERANDS_OF = {("13__nv_bfloat16", "0"): "bf16",
                ("13__nv_bfloat16", "1"): "bf16 ring", ("f", "0"): "f32"}
-INSTANTIATIONS = 9
+INSTANTIATIONS = 18
 
 PHASES = ("cfr-checks", "fp-checks", "cfr-selfplay", "cfr-shapes", "eval",
           "exploit-check", "fp-selfplay", "knob-checks", "bench", "run-entry",
           "games", "games-exploit", "run-entry-2x3", "fast-check", "spmd",
-          "widths", "run-entry-widths")
+          "widths", "run-entry-widths", "large-games", "run-entry-2x6")
 
 # The nets of every width and depth the kernel takes (phase 17), each on
 # 1x4f against the plain version with a fresh net from a seed (LayerNorm
@@ -473,6 +496,50 @@ RUN_ENTRY_2X3_ARGS = ["selfplay.engine=pallas",
                       "env.num_faces=3", "exploit=false", "checkpoint_every=1",
                       "max_epochs=1", "stall_timeout_s=600"]
 
+# The games of up to 64 hands and 64 actions (phase 19), each with a
+# fresh 256x2 net from a seed: LARGE_GAMES on LARGE_LANES lanes, whose
+# launches take the device workspace, then the boundary games (64 hands;
+# 33 actions) on BOUNDARY_LANES lanes.  The 64-iteration controls: f32,
+# the plain version on the CPU on LARGE_CONTROL_LANES lanes; bf16, the
+# plain version with the tensor cores' chained sums on the card on the
+# same lanes (WIDTH_CONTROL_SUMS), because over 64 iterations bf16 CFR
+# and FP part from the plain version by their MLP's sum order, which a
+# CPU control with the same sums does not see (the CPU control read 0 of
+# 16 lanes apart at 2x6f bf16 CFR where the kernel read 7.4% of 256;
+# PERF.md).  WORKSPACE_BITS: the
+# workspace forced to its deepest level against the default layout, bit
+# for bit over the path's iterations on WORKSPACE_BITS_LANES lanes
+# ((game, solver, operands, interleave)).
+LARGE_GAMES = ((2, 5), (3, 3), (2, 6))
+LARGE_LANES = 256
+LARGE_CONTROL_LANES = 16
+BOUNDARY_GAMES = ((3, 4), (1, 16))
+BOUNDARY_LANES = 64
+# (solver, game) where two correct plain versions (f32 sums, and exact
+# or the tensor cores' chained sums) already read the phase's fresh net
+# over CHECK_ITERS iterations in bf16 apart by more than the limit on its
+# lanes (`chip_studies.py sum-order --fresh`, PERF.md): CFR's max_abs_diff
+# 1.061e-03 at 2x5f, 1.844e-03 at 2x6f, 1.475e-03 at 3x4f against
+# TOL_BF16 (3x3f 8.99e-04, 1x16f 1.3e-05); FP's flip lanes 3.1% at 3x4f
+# against FP_TIE_SHARE.  There the kernel is held over LONG_ITERS by the
+# statistics against a control only.
+BF16_LONG_ONLY = {("cfr", (2, 5)), ("cfr", (2, 6)), ("cfr", (3, 4)),
+                  ("fp", (3, 4))}
+WORKSPACE_BITS = (((1, 4), "cfr", "bf16", 1), ((1, 4), "fp", "bf16", 1),
+                  ((1, 4), "cfr", "f32", 1), ((1, 4), "fp", "f32", 1),
+                  ((2, 3), "cfr", "bf16", 1), ((2, 3), "fp", "bf16", 1),
+                  ((2, 3), "cfr", "f32", 1), ((2, 3), "fp", "f32", 1),
+                  ((1, 4), "cfr", "bf16", 2), ((2, 6), "cfr", "bf16", 1))
+WORKSPACE_BITS_LANES = 256
+# The run entry at 2x6 (phase 20): the round-5 overrides at 2x6f, burn-in
+# and one epoch with its checkpoint, no exploit evaluation (the full tree
+# at 2x6f has 2^25 nodes).
+RUN_ENTRY_2X6_ARGS = ["selfplay.engine=pallas",
+                      "selfplay.net_compute_dtype=bf16",
+                      "env.subgame_params.use_cfr=true", "env.num_dice=2",
+                      "env.num_faces=6", "exploit=false", "checkpoint_every=1",
+                      "max_epochs=1", "stall_timeout_s=600"]
+
 # The run entry (phase 11): conf/liars_sp.yaml with the round-5 overrides
 # (scripts/round5_run.sh), cut to two epochs and a resumed third.
 ROUND5 = ["selfplay.engine=pallas", "selfplay.net_compute_dtype=bf16",
@@ -524,7 +591,8 @@ def instantiation(mangled: str) -> tuple[str, str] | None:
     m = INSTANTIATION.search(mangled)
     if m is None:
         return None
-    return KERNEL_OF[m[2], m[3]], OPERANDS_OF[m[1], m[4]]
+    ws = " workspace" if m[5] == "1" else ""
+    return KERNEL_OF[m[2], m[3]], OPERANDS_OF[m[1], m[4]] + ws
 
 
 def ring_bits_nets(game, width: int, layers: int, seed: int):
@@ -607,10 +675,13 @@ def build_report(build, grid2p, game, failures: list) -> list[str]:
     params = {"grid2_fp": False}
     for (kernel, operands), got in sorted(props.items()):
         groups = 2 if kernel == "grid2_cfr_il2" else 1
-        ring = operands == "bf16 ring"
+        ring = operands.startswith("bf16 ring")
+        bf16 = operands.startswith("bf16")
+        ws = (grid2p.max_workspace(2, bf16) if operands.endswith("workspace")
+              else 0)
         smem = grid2p.smem_layout(
             game, 8, params.get(kernel, True), 256, 3 if ring else 2,
-            operands != "f32", groups, ring=ring)["total"]
+            bf16, groups, ring=ring, workspace=ws)["total"]
         print(f"  {kernel} {operands}: "
               f"{got.get('registers')} registers, spill stores "
               f"{got.get('spill_stores')} B, spill loads "
@@ -618,8 +689,7 @@ def build_report(build, grid2p, game, failures: list) -> list[str]:
               f"block 8; HGMMA {got.get('HGMMA', 'not counted')}, HMMA "
               f"{got.get('HMMA', 'not counted')}")
         tensor = (got.get("HGMMA", 0), got.get("HMMA", 0))
-        if sass is not None and (tensor[0] == 0 if operands != "f32"
-                                 else any(tensor)):
+        if sass is not None and (tensor[0] == 0 if bf16 else any(tensor)):
             failures.append(f"{kernel} {operands}: {got.get('HGMMA', 0)} "
                             f"HGMMA and {got.get('HMMA', 0)} HMMA "
                             "instructions")
@@ -910,14 +980,16 @@ def main() -> int:
     # The plain version on the CPU for every mode's statistics, while the
     # kernel builds.
     cfr_controls = {}
+    n_ctl = CHECK_CONTROL_LANES
+    first = lambda out: grid2p.Grid2Outputs(*(x[:n_ctl] for x in out))
     if "cfr-checks" in phases:
         for k, (name, kw, layers, use_ln, dtype) in enumerate(modes):
             net = fresh_net(layers, use_ln, 10 + k, seeded_ln=True)[0]
             for iters in cfr_iters(layers)[1:]:
                 inputs = random_inputs(256, iters, 20 + k)
                 cfr_controls[k, iters] = grid2p.solve_reference(
-                    game, cfr(iters, **kw), *[x.cpu() for x in inputs], net,
-                    dtype)
+                    game, cfr(iters, **kw),
+                    *[x[:n_ctl].cpu() for x in inputs], net, dtype)
     built.result()
     builder.shutdown()
     print(f"kernel build: grid2_cfr.cu ({', '.join(KERNELS)}): "
@@ -941,7 +1013,8 @@ def main() -> int:
                     if dtype == torch.bfloat16:
                         precision_control(label, args, tol)
                     continue
-                long_check(label, out, ref, ref, cfr_controls[k, iters])
+                long_check(f"{label} (control on {n_ctl} lanes)", out, ref,
+                           first(ref), cfr_controls[k, iters])
         lap("cfr-checks")
 
     # ------------------------------------- 3. grid2_fp vs plain version
@@ -978,9 +1051,10 @@ def main() -> int:
                         precision_control(label, args, tol)
                     continue
                 cpu = grid2p.solve_reference(
-                    game, fp(iters, **kw), *[x.cpu() for x in inputs], net,
-                    dtype)
-                long_check(label, out, ref, ref, cpu)
+                    game, fp(iters, **kw), *[x[:n_ctl].cpu() for x in inputs],
+                    net, dtype)
+                long_check(f"{label} (control on {n_ctl} lanes)", out, ref,
+                           first(ref), cpu)
         lap("fp-checks")
 
     # ----------------------------------------- 4./8. self-play trainers
@@ -1051,9 +1125,13 @@ def main() -> int:
             failures.append(f"{name}: episode beliefs do not sum to one")
         return trainer
 
-    def time_kernel(args, reps: int = 3, dtype=torch.bfloat16, **knobs):
-        """``(ms per launch, outputs)`` of the fused solve in ``dtype``."""
-        out = grid2p.solve(*args, dtype, **knobs)  # warm
+    def time_kernel(args, reps: int = 3, dtype=torch.bfloat16, warm=True,
+                    **knobs):
+        """``(ms per launch, outputs)`` of the fused solve in ``dtype``,
+        after a warm-up launch unless the instantiation has run before
+        (``warm=False``)."""
+        if warm:
+            grid2p.solve(*args, dtype, **knobs)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -2410,6 +2488,244 @@ def main() -> int:
     if "run-entry-widths" in phases:
         run_entry_widths()
         lap("run-entry-widths")
+
+    # ------------------- 19. the games of up to 64 hands and 64 actions
+    def large_net(g_, seed: int):
+        """A fresh 256x2 net of ``g_`` from ``seed`` on the card, with
+        LayerNorm's scale and bias drawn from the seed too (U(0.5, 1.5),
+        U(-0.5, 0.5))."""
+        g = torch.Generator().manual_seed(seed)
+        net = CFVNet(g_, 256, 2, True, generator=g)
+        with torch.no_grad():
+            for _, ln in net.hidden_layers():
+                ln.weight.copy_(0.5 + torch.rand(256, generator=g))
+                ln.bias.copy_(torch.rand(256, generator=g) - 0.5)
+        return net.to(dev)
+
+    def plan_line(g_, sub, net, dtype, batch) -> tuple:
+        """``(lane block, plan)`` the wrapper takes, printed."""
+        lb = grid2p.choose_lane_block(g_, sub, net, dtype, batch)
+        plan = grid2p.kernel_plan(g_, sub, net, dtype, batch, lb)
+        print(f"  plan at B={batch}: lane block {lb}, layout {plan.layout}, "
+              f"shared memory {plan.smem} B, workspace {plan.ws_bytes} B a "
+              f"block ({batch // lb * plan.ws_bytes} B in all), mlp_chunks "
+              f"{plan.mlp_chunks}")
+        return lb, plan
+
+    def hold_large(g_, solver, dtype, net, lanes, seeds, control=None,
+                   long=True):
+        """The kernel against its plain version at ``g_`` on ``lanes``
+        lanes: over CHECK_ITERS iterations to the 1x4f limits of a fresh
+        net (FP: tie lanes counted; bf16 with its precision control), but
+        where BF16_LONG_ONLY says two correct plain versions part beyond
+        them; over LONG_ITERS by the statistics against a control: f32,
+        the plain version on the CPU on the first LARGE_CONTROL_LANES
+        lanes (``control``: that solve, computed beforehand); bf16, the
+        plain version with the tensor cores' chained sums on the same
+        lanes, as the widths phase holds FP (CFR: chaotic lanes counted,
+        FP: flip lanes).  ``seeds``: of the inputs over CHECK_ITERS and
+        over LONG_ITERS iterations; ``long=False``: over LONG_ITERS only
+        where BF16_LONG_ONLY leaves no other check."""
+        bf16 = dtype == torch.bfloat16
+        make = cfr if solver == "cfr" else fp
+        name = (f"{g_.num_dice}x{g_.num_faces} {solver} "
+                f"{'bf16' if bf16 else 'f32'}")
+        tol = ((TOL_BF16 if bf16 else TOL_F32) if solver == "cfr"
+               else (TOL_FP_BF16 if bf16 else TOL_FP_F32))
+        long_only = bf16 and (solver, (g_.num_dice, g_.num_faces)) \
+            in BF16_LONG_ONLY
+        for iters in ((LONG_ITERS,) if long_only else (CHECK_ITERS,)
+                      + ((LONG_ITERS,) if long else ())):
+            inputs = random_inputs(lanes, iters,
+                                   seeds[iters == LONG_ITERS], g_)
+            args = (g_, make(iters), *inputs, net)
+            out = grid2p.solve(*args, dtype)
+            ref = grid2p.solve_reference(*args, dtype)
+            label = f"large-games {name}: B={lanes} iters={iters}"
+            if iters == CHECK_ITERS:
+                if solver == "cfr":
+                    short_check(label, out, ref, tol)
+                else:
+                    tie_check(label, out, ref, tol)
+                if bf16:
+                    precision_control(label, args, tol)
+                continue
+            flips = TIE_SHARE if solver == "cfr" else FP_TIE_SHARE
+            if bf16:
+                import chip_studies
+
+                with chip_studies._products(
+                        chip_studies.ORDERS[WIDTH_CONTROL_SUMS["bf16"]]):
+                    other = grid2p.solve_reference(*args, dtype)
+                long_check(f"{label} (control: "
+                           f"{WIDTH_CONTROL_SUMS['bf16']} sums)", out, ref,
+                           ref, other, flips=flips)
+                continue
+            n = LARGE_CONTROL_LANES
+            cpu = control.result() if control is not None else \
+                grid2p.solve_reference(g_, make(iters),
+                                       *[x[:n].cpu() for x in inputs],
+                                       copy.deepcopy(net).cpu(), dtype)
+            if solver == "fp":
+                tie_check(label, out, ref, tol)
+            long_check(f"{label} (control on {n} lanes)", out, ref,
+                       grid2p.Grid2Outputs(*(x[:n] for x in ref)), cpu,
+                       flips=FP_TIE_SHARE if solver == "fp" else None)
+
+    def large_games() -> None:
+        """LARGE_GAMES, CFR and FP, bf16 and f32, fresh 256x2 nets: the
+        plan, then ``hold_large`` on LARGE_LANES lanes (the f32 controls
+        computed on the CPU beside the card's work), and one timed launch
+        of B lanes x ITERS iterations beside the bound of the game's MLP
+        FLOP.  Then the boundary games on BOUNDARY_LANES lanes (over
+        CHECK_ITERS iterations, or LONG_ITERS where BF16_LONG_ONLY says),
+        and the workspace held to the shared-memory layout bit for bit
+        (WORKSPACE_BITS)."""
+        n = LARGE_CONTROL_LANES
+        pool = concurrent.futures.ThreadPoolExecutor(2)
+        cases = []
+        for k, (nd, nf) in enumerate(LARGE_GAMES):
+            g_ = LiarsDice(nd, nf)
+            net = large_net(g_, 300 + k)
+            net_cpu = copy.deepcopy(net).cpu()
+            for solver in ("cfr", "fp"):
+                make = cfr if solver == "cfr" else fp
+                for dtype in (torch.bfloat16, torch.float32):
+                    control = None
+                    if dtype == torch.float32:
+                        inputs = random_inputs(LARGE_LANES, LONG_ITERS,
+                                               310 + k, g_)
+                        control = pool.submit(
+                            grid2p.solve_reference, g_, make(LONG_ITERS),
+                            *[x[:n].cpu() for x in inputs], net_cpu, dtype)
+                    cases.append((g_, solver, dtype, net, control, k))
+        for g_, solver, dtype, net, control, k in cases:
+            bf16 = dtype == torch.bfloat16
+            nd, nf = g_.num_dice, g_.num_faces
+            name = f"{nd}x{nf} {solver} {'bf16' if bf16 else 'f32'}"
+            make = cfr if solver == "cfr" else fp
+            kernel = grid2p.kernel_name(make(ITERS))
+            print(f"large-games {name}: {kernel}, H={g_.num_hands} "
+                  f"A={g_.num_actions} Q={g_.query_size}")
+            lb, plan = plan_line(g_, make(ITERS), net, dtype, B)
+            lanes_lb, _ = plan_line(g_, make(ITERS), net, dtype, LARGE_LANES)
+            hold_large(g_, solver, dtype, net, LARGE_LANES,
+                       (320 + k, 310 + k), control)
+            if grid2p.solve.last_lane_block != lanes_lb:
+                failures.append(f"large-games {name}: launched at lane block "
+                                f"{grid2p.solve.last_lane_block}, chosen "
+                                f"{lanes_lb}")
+            args = (g_, make(ITERS), *random_inputs(B, ITERS, 330 + k, g_),
+                    net)
+            # The instantiation has run in hold_large: no warm-up.
+            ms, out = time_kernel(args, reps=1, dtype=dtype, warm=False)
+            flops = grid2p.mlp_flops_per_lane_iter(g_, 256, 2) * B * ITERS
+            bound_ms = flops / (H100_BF16_FLOPS if bf16
+                                else H100_F32_FLOPS) * 1e3
+            print(f"  {kernel} {name}: {ms:.3f} ms a launch of {B} lanes x "
+                  f"{ITERS} iterations at lane block {lb}, {plan.layout}; "
+                  f"bound {bound_ms:.3f} ms ({flops:.4e} model FLOP at the "
+                  f"{'bf16' if bf16 else 'f32'} peak, share "
+                  f"{bound_ms / ms:.2%})")
+            game_modes.setdefault(kernel, []).append(dict(
+                game=f"{nd}x{nf}", operands="bf16" if bf16 else "f32",
+                lane_block=lb, layout=plan.layout, ms=ms, bound_ms=bound_ms))
+            if not finite(out):
+                failures.append(f"large-games {name}: non-finite outputs at "
+                                f"B={B}")
+        pool.shutdown()
+        for k, (nd, nf) in enumerate(BOUNDARY_GAMES):
+            g_ = LiarsDice(nd, nf)
+            net = large_net(g_, 340 + k)
+            for solver in ("cfr", "fp"):
+                for dtype in (torch.bfloat16, torch.float32):
+                    bf16 = dtype == torch.bfloat16
+                    print(f"large-games boundary {nd}x{nf} {solver} "
+                          f"{'bf16' if bf16 else 'f32'}: H={g_.num_hands} "
+                          f"A={g_.num_actions} Q={g_.query_size}")
+                    plan_line(g_, (cfr if solver == "cfr" else fp)(ITERS),
+                              net, dtype, BOUNDARY_LANES)
+                    hold_large(g_, solver, dtype, net, BOUNDARY_LANES,
+                               (350 + k, 350 + k), long=False)
+        workspace_bits()
+
+    def workspace_bits() -> None:
+        """WORKSPACE_BITS: the launch with the workspace forced to its
+        deepest level against the default layout, the same lanes over the
+        path's iterations, bit for bit."""
+        for (nd, nf), solver, dname, il in WORKSPACE_BITS:
+            g_ = LiarsDice(nd, nf)
+            dtype = torch.bfloat16 if dname == "bf16" else torch.float32
+            args = (g_, (cfr if solver == "cfr" else fp)(ITERS),
+                    *random_inputs(WORKSPACE_BITS_LANES, ITERS, 360, g_),
+                    large_net(g_, 361), dtype)
+            a = grid2p.solve(*args, interleave=il)
+            layouts = [grid2p.solve.last_layout]
+            with grid2p._force_workspace(grid2p.WS_W0):
+                b = grid2p.solve(*args, interleave=il)
+            layouts.append(grid2p.solve.last_layout)
+            ok = (finite(a) and "workspace" in layouts[1]
+                  and all(torch.equal(x, y) for x, y in zip(a, b)))
+            print(f"check large-games workspace bits {nd}x{nf} {solver} "
+                  f"{dname}{' interleave=2' if il == 2 else ''}: "
+                  f"B={WORKSPACE_BITS_LANES} iters={ITERS}, {layouts[0]} "
+                  f"against {layouts[1]}: bit-identical (max_abs_diff="
+                  f"{max_diff(a, b):.3e}) {'ok' if ok else 'MISS'}")
+            if not ok:
+                failures.append(f"large-games workspace bits {nd}x{nf} "
+                                f"{solver} {dname}")
+
+    if "large-games" in phases:
+        reset_counts()
+        large_games()
+        read_counts("large-games", "grid2_cfr", "grid2_fp", "grid2_cfr_il2")
+        lap("large-games")
+
+    # ------------------------------------------- 20. the run entry at 2x6
+    def run_entry_2x6() -> None:
+        """``python -m rebel_tpu_torch.run`` in process at 2x6f (36 hands,
+        a query of 99 values) with the round-5 overrides: burn-in and one
+        epoch through ``grid2_cfr`` on the workspace layout, and the
+        checkpoint."""
+        import tempfile
+
+        from rebel_tpu_torch import run as run_mod
+
+        with tempfile.TemporaryDirectory() as tmp:
+            exp = pathlib.Path(tmp) / "liars_sp_2x6"
+            reset_counts()
+            t0 = time.perf_counter()
+            out = run_mod.execute([
+                "--cfg", str(ROOT / "conf" / "liars_sp.yaml"), "--exp_dir",
+                str(exp), "--mode", "gentle_start", *RUN_ENTRY_2X6_ARGS])
+            torch.cuda.synchronize()
+            tr = out.trainer
+            kernel = grid2p.kernel_name(tr.cfg.env.subgame_params)
+            print(f"run-entry-2x6: {time.perf_counter() - t0:.2f} s wall, "
+                  f"epochs {tr.epoch}, {tr.gen_steps} generation steps "
+                  f"(burn-in {tr.burn_in_s:.3f} s) through {kernel} at lane "
+                  f"block {grid2p.solve.last_lane_block}, "
+                  f"{grid2p.solve.last_layout}")
+            read_counts("run-entry-2x6", kernel, expect=tr.gen_steps)
+            if kernel != "grid2_cfr" or "workspace" not in str(
+                    grid2p.solve.last_layout):
+                failures.append(f"run-entry-2x6: {kernel} on "
+                                f"{grid2p.solve.last_layout}")
+            m = json.loads((exp / "metrics.jsonl").read_text().splitlines()[0])
+            print(f"  epoch 0: generation {m['timing/gen']:.3f} s, training "
+                  f"{m['timing/train']:.3f} s, loss {m['loss/train']:.6f}, "
+                  f"checkpoint {m.get('timing/checkpoint', math.nan):.3f} s, "
+                  f"{m.get('checkpoint/bytes')} B")
+            absent = [f for f in ("ckpt/epoch0.ckpt", "ckpt/epoch0.params",
+                                  "result.json")
+                      if not (exp / f).exists()]
+            if absent or not math.isfinite(m["loss/train"]):
+                failures.append(f"run-entry-2x6: files missing {absent} or "
+                                f"loss {m['loss/train']}")
+
+    if "run-entry-2x6" in phases:
+        run_entry_2x6()
+        lap("run-entry-2x6")
 
     print(f"phase host seconds: {phase_s}")
     print(f"whole run: {time.perf_counter() - start:.1f} s, the build "

@@ -62,7 +62,10 @@ depends on neither the net nor the subgame iterations, so it runs
 without a net over one iteration; rows in ``DIR/launches.json``.
 ``plain-ms`` (card only, some ten minutes): the plain version's time
 (``grid2p.solve_reference``) at the modes of PERF.md's kernel table that
-lack it (:data:`PLAIN_MODES`); rows in ``DIR/plain_ms.json``.
+lack it (:data:`PLAIN_MODES`; ``--large``: :data:`PLAIN_LARGE_MODES`,
+2x5f to 3x4f with the fresh nets of ``chip_smoke.py large-games``; with
+``--kernel``, the kernel's time on the same inputs); rows in
+``DIR/plain_ms.json``.
 """
 
 from __future__ import annotations
@@ -544,6 +547,9 @@ def sum_order(args) -> list[dict]:
 
     nd, nf = (int(x) for x in args.game.split("x"))
     game = LiarsDice(nd, nf)
+    if not args.fresh and (nd, nf) not in FP_NETS:
+        raise SystemExit(f"sum-order at {args.game} needs --fresh: the repo "
+                         "has no trained net of that game")
     if args.fresh:
         # chip_smoke.py's fresh_net(layers, use_ln, seed, seeded_ln=True,
         # width) of its widths phase.
@@ -688,6 +694,12 @@ PLAIN_MODES += [((1, 4), solver, mlp, (256, 2))
 PLAIN_MODES += [((1, 4), "cfr", "bf16", (256, 3)),
                 ((1, 4), "cfr", "bf16", (32, 2)),
                 ((1, 4), "cfr", "f32", (32, 2))]
+# plain-ms --large: the games of up to 64 hands and actions, with the
+# fresh 256x2 nets of chip_smoke.py's large-games phase (LARGE_NET_SEEDS).
+PLAIN_LARGE_MODES = [((nd, nf), solver, mlp, (256, 2))
+                     for nd, nf in ((2, 5), (3, 3), (2, 6), (3, 4))
+                     for solver in ("cfr", "fp") for mlp in ("bf16", "f32")]
+LARGE_NET_SEEDS = {(2, 5): 300, (3, 3): 301, (2, 6): 302, (3, 4): 340}
 GAME_NETS = {**NETS, ((1, 5), "fp"): FP_NETS[1, 5],
              ((1, 6), "cfr"): "results/liars_sp/r5_1x6cfr/ckpt/epoch990.params",
              ((1, 6), "fp"): FP_NETS[1, 6]}
@@ -710,7 +722,8 @@ def plain_ms(args) -> list[dict]:
     dev = torch.device("cuda")
     card = card_name_and_power_limit()
     rows = []
-    for (nd, nf), solver, mlp, (width, layers) in PLAIN_MODES:
+    for (nd, nf), solver, mlp, (width, layers) in (
+            PLAIN_LARGE_MODES if args.large else PLAIN_MODES):
         game = LiarsDice(nd, nf)
         A, H = game.num_actions, game.num_hands
         g = torch.Generator().manual_seed(SAME_BITS_SEED)
@@ -721,8 +734,18 @@ def plain_ms(args) -> list[dict]:
                   torch.randint(0, 1025, (1024,), generator=g)]
         net = None
         path = GAME_NETS[(nd, nf), solver] if (width, layers) == (256, 2) \
-            else f"{width}x{layers} from a seed"
-        if mlp != "none":
+            and not args.large else f"{width}x{layers} from a seed"
+        if args.large:
+            seed = LARGE_NET_SEEDS[nd, nf]
+            path = f"256x2 from seed {seed}, LayerNorm drawn"
+            g_net = torch.Generator().manual_seed(seed)
+            net = CFVNet(game, 256, 2, True, generator=g_net)
+            with torch.no_grad():
+                for _, ln in net.hidden_layers():
+                    ln.weight.copy_(0.5 + torch.rand(256, generator=g_net))
+                    ln.bias.copy_(torch.rand(256, generator=g_net) - 0.5)
+            net = net.to(dev)
+        elif mlp != "none":
             if (width, layers) == (256, 2):
                 net = _load_net(str(ROOT / path), game, "cuda")[1]
             else:
@@ -730,7 +753,8 @@ def plain_ms(args) -> list[dict]:
                              generator=torch.Generator().manual_seed(5)
                              ).to(dev)
         dtype = torch.float32 if mlp == "f32" else torch.bfloat16
-        call = lambda iters: grid2p.solve_reference(
+        solve = grid2p.solve if args.kernel else grid2p.solve_reference
+        call = lambda iters: solve(
             game, SubgameSolvingParams(num_iters=iters, max_depth=2,
                                        use_cfr=solver == "cfr",
                                        linear_update=True),
@@ -745,8 +769,13 @@ def plain_ms(args) -> list[dict]:
         end.synchronize()
         rows.append(dict(card=card, game=f"{nd}x{nf}", solver=solver,
                          mlp=mlp, net=path if net is not None else None,
-                         lanes=1024, iters=1024,
-                         plain_ms=start.elapsed_time(end)))
+                         lanes=1024, iters=1024))
+        if args.kernel:
+            rows[-1].update(kernel_ms=start.elapsed_time(end),
+                            lane_block=grid2p.solve.last_lane_block,
+                            layout=grid2p.solve.last_layout)
+        else:
+            rows[-1]["plain_ms"] = start.elapsed_time(end)
         print(json.dumps(rows[-1]), flush=True)
     (args.out / "plain_ms.json").write_text(json.dumps(rows, indent=1))
     return rows
@@ -817,7 +846,9 @@ def main(argv=None) -> list[dict]:
     o = sub.add_parser("sum-order")
     o.add_argument("--out", type=pathlib.Path, required=True)
     o.add_argument("--game", default="2x3",
-                   choices=["1x4"] + [f"{nd}x{nf}" for nd, nf in FP_NETS])
+                   choices=["1x4"] + [f"{nd}x{nf}" for nd, nf in FP_NETS]
+                   + ["2x5", "3x3", "2x6", "3x4", "1x16"],
+                   help="the larger games (2x5 and on) with --fresh only")
     o.add_argument("--fresh", default=None, metavar="WIDTHxLAYERS",
                    help="a fresh net from --net-seed, as chip_smoke.py's "
                         "widths phase makes it, instead of the trained FP "
@@ -849,6 +880,12 @@ def main(argv=None) -> list[dict]:
     n.add_argument("--out", type=pathlib.Path, required=True)
     pm = sub.add_parser("plain-ms")
     pm.add_argument("--out", type=pathlib.Path, required=True)
+    pm.add_argument("--large", action="store_true",
+                    help="the games of up to 64 hands and actions "
+                         "(PLAIN_LARGE_MODES) in place of PLAIN_MODES")
+    pm.add_argument("--kernel", action="store_true",
+                    help="time the kernel (grid2p.solve) on the same inputs "
+                         "in place of the plain version")
     bl = sub.add_parser("same-bits-launch")
     bl.add_argument("--root", type=pathlib.Path, required=True)
     bl.add_argument("--out", type=pathlib.Path, required=True)

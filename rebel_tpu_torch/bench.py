@@ -140,8 +140,10 @@ def measure(batch: int, num_iters: int, steps: int, warmup: int = 1,
         "kernel_s": (sum(s.elapsed_time(e) for _, s, e in events) / 1e3
                      if events else None),
         "launches": launches,
-        # The lane block the kernel launched with (None: no launch).
+        # The lane block and the layout the kernel launched with (None:
+        # no launch).
         "lane_block": grid2p.solve.last_lane_block if launches else None,
+        "kernel_layout": grid2p.solve.last_layout if launches else None,
         "checksum": checksum,
     }
 
@@ -305,6 +307,7 @@ def main(argv=None) -> list[dict]:
                 "checksum": res["checksum"],
                 "layout": args.layout,
                 "lane_block": res["lane_block"],
+                "kernel_layout": res["kernel_layout"],
                 "mlp_chunks": args.mlp_chunks,
                 "interleave": args.interleave,
                 "gelu": args.gelu,

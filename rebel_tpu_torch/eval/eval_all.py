@@ -149,6 +149,7 @@ def main(argv=None) -> list[dict]:
                 "device": args.device,
                 "net_compute_dtype": result.get("net_compute_dtype"),
                 "lane_block": result.get("lane_block"),
+                "layout": result.get("layout"),
                 # Host seconds of the row and the fused kernel's launches.
                 "wall_s": time.perf_counter() - t0,
                 "launches": grid2p.solve.launches - launches0,

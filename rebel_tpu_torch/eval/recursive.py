@@ -338,7 +338,9 @@ class Grid2FrontierSolver:
       values, as ``zero_value_fn`` does.  On CUDA tensors it launches the
       CUDA kernel, on the CPU its plain version.  ``lane_block=None``
       takes :func:`~rebel_tpu_torch.solving.grid2p.choose_lane_block`'s
-      for the game and net (kept in ``lane_block_used``; None on the CPU).
+      for the game and net (kept in ``lane_block_used``, and its layout,
+      :attr:`~rebel_tpu_torch.solving.grid2p.KernelPlan.layout`, in
+      ``layout_used``; both None on the CPU).
     """
 
     game: LiarsDice
@@ -376,15 +378,20 @@ class Grid2FrontierSolver:
                     "evaluation. Pass net (the checkpoint's CFVNet) or "
                     "drop value_fn for an explicit zero-net run."
                 )
-        lane_block = self.lane_block
-        if (self.engine == "kernel" and lane_block is None
+        lane_block, layout = self.lane_block, None
+        if (self.engine == "kernel"
                 and torch.device(self.device).type == "cuda"):
-            # Every chunk is padded to a multiple of the block, so only
-            # the fit decides it.
-            lane_block = grid2p.choose_lane_block(
+            if lane_block is None:
+                # Every chunk is padded to a multiple of the block, so
+                # only the fit decides it.
+                lane_block = grid2p.choose_lane_block(
+                    self.game, self.params, self.net, self._net_dtype(),
+                    math.lcm(*grid2p.LANE_BLOCKS))
+            layout = grid2p.kernel_plan(
                 self.game, self.params, self.net, self._net_dtype(),
-                math.lcm(*grid2p.LANE_BLOCKS))
+                lane_block, lane_block).layout
         object.__setattr__(self, "lane_block_used", lane_block)
+        object.__setattr__(self, "layout_used", layout)
 
     def _net_dtype(self) -> torch.dtype:
         return getattr(torch, resolved_net_compute_dtype(

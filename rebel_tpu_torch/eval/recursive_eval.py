@@ -340,8 +340,10 @@ def run_eval(
         "net": net_name,
         "engine": engine,
         "net_compute_dtype": net_dtype,
-        # The kernel engine's lane block on the card (else None).
+        # The kernel engine's lane block and layout on the card (else
+        # None).
         "lane_block": fsolver and fsolver.lane_block_used,
+        "layout": fsolver and fsolver.layout_used,
         "exploitability": dict(results),
         "ev": {},
         "full_trajectory": trajectory,
@@ -398,6 +400,7 @@ def run_eval(
         "immediate_regrets": regret_summary,
         "net_compute_dtype": net_dtype,
         "lane_block": partial["lane_block"],
+        "layout": partial.get("layout"),
     }
 
 

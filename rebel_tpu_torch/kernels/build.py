@@ -4,7 +4,10 @@ Each kernel is one ``.cu`` file beside this module with a plain C
 interface.  ``load(name)`` compiles it with ``nvcc`` for ``sm_90a`` into
 ``rebel_tpu_torch/_build/`` (listed in ``.gitignore``), keyed by a hash of
 the source and flags, and loads the shared library; ``defines`` adds a
-``-D`` for each (``mlp_breakdown``'s variants).  A plain C interface
+``-D`` for each (``mlp_breakdown``'s variants).  A source listed in
+:data:`UNITS` is compiled in that many units side by side, one ``nvcc``
+each with ``-DGRID2_UNIT=u`` (each unit holds one of its kernels'
+instantiations); the objects are linked into the one library.  A plain C interface
 keeps PyTorch's headers out of the compile: it takes seconds where a
 ``torch.utils.cpp_extension`` build takes minutes.  Nothing is compiled
 when this module is imported, and a missing ``nvcc`` or a failed compile
@@ -13,12 +16,14 @@ raises: there is no fallback.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 KERNEL_DIR = pathlib.Path(__file__).resolve().parent
@@ -34,6 +39,13 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
+
+# Sources compiled in units side by side: grid2_cfr.cu's eighteen
+# instantiations, one a unit.  At most one nvcc a CPU core runs at a time,
+# across the builds of all threads (mlp_breakdown builds its variants side
+# by side).
+UNITS = {"grid2_cfr": 18}
+_NVCC_SLOTS = threading.BoundedSemaphore(os.cpu_count() or 8)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # Seconds each build took to compile in this process (0.0: found built),
@@ -62,7 +74,8 @@ def flags(defines: tuple[str, ...] = ()) -> list[str]:
 def library_path(name: str, defines: tuple[str, ...] = ()) -> pathlib.Path:
     src = (KERNEL_DIR / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(
-        src + " ".join(flags(defines)).encode()).hexdigest()
+        src + " ".join(flags(defines)).encode()
+        + f" units={UNITS.get(name, 1)}".encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -78,17 +91,37 @@ def build(name: str, defines: tuple[str, ...] = ()) -> pathlib.Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *flags(defines), "-o", str(tmp),
-           str(KERNEL_DIR / f"{name}.cu")]
+    src = str(KERNEL_DIR / f"{name}.cu")
+    nvcc = nvcc_path()
+    units = [[f"-DGRID2_UNIT={u}"] for u in range(UNITS[name])] \
+        if name in UNITS else [[]]
+    objs = [str(so.with_suffix(f".{os.getpid()}.u{u}.o"))
+            for u in range(len(units))]
+    compile_flags = [f for f in flags(defines) if f != "-shared"]
+
+    def compile_unit(unit, obj):
+        with _NVCC_SLOTS:
+            return subprocess.run(
+                [nvcc, *compile_flags, *unit, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
+        procs = list(pool.map(compile_unit, units, objs))
+    out = "".join(proc.stdout for proc in procs)
+    rc = max(proc.returncode for proc in procs)
+    if rc == 0:
+        link = subprocess.run([nvcc, *flags(defines), "-o", str(tmp), *objs],
+                              capture_output=True, text=True)
+        out += link.stdout + link.stderr
+        rc = link.returncode
+    for obj in objs:
+        pathlib.Path(obj).unlink(missing_ok=True)
     build_seconds[key] = time.perf_counter() - t0
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    so.with_suffix(".log").write_text(out)
+    if rc != 0:
         raise RuntimeError(
-            f"nvcc failed to build {name}.cu with {list(defines)}:\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+            f"nvcc failed to build {name}.cu with {list(defines)}:\n{out}")
     os.replace(tmp, so)
     return so
 

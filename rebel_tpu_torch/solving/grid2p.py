@@ -46,6 +46,7 @@ elementwise math is f32.  Both take the reference kernel's options:
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import NamedTuple
 
@@ -62,11 +63,27 @@ from rebel_tpu_torch.solving.params import SubgameSolvingParams
 # nets need another design (ROADMAP Queue 6).
 KERNEL_WIDTH = 256
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+# The games the kernel takes: hands and actions of a row, which the body
+# deals to the lanes of a warp, two values a lane.  Rows wider than
+# NARROW_ROW and bf16 first layers deeper than NARROW_K0 run in the
+# kernel's workspace instantiations only.
+MAX_ROW = 64
+NARROW_ROW = 32
+NARROW_K0 = 64
 # The tensor-core MLP (bf16 operands): query rows of a warpgroup's tile,
-# warpgroups of a block, and the deepest first layer (Q rounded up to 16).
+# warpgroups of a block, and the deepest first layer (Q rounded up to 16;
+# the f32 MLP takes the same queries).
 MMA_ROWS = 64
 WARPGROUPS = 2
-MAX_K0 = 64
+MAX_K0 = 256
+# Levels of the device workspace (the kernel's WS_*): the arrays that move
+# out of shared memory, each level with those before it, largest first,
+# where no lane block's state fits a block's shared memory otherwise.
+WS_PAYOFF = 1  # the payoff table (read where the wrapper keeps it)
+WS_LEVEL1 = 2  # the level-1 arrays [A, H, A]
+WS_ROWS = 3    # the staging and leaf-value rows
+WS_BODY = 4    # the rest of the [H, H], [H, A] and [A, H] arrays
+WS_W0 = 5      # f32: the first layer streams through the f32 ring
 # The f32 MLP (FMA): query rows a warp owns, warps of a block, and the
 # ring a group of warps streams each hidden matrix through (stages of
 # RING_K of its rows).
@@ -411,7 +428,7 @@ def pack_f32_net(net: CFVNet, width: int) -> tuple:
 def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
                 n_hidden: int, n_layers: int, bf16: bool,
                 groups: int = 1, optimistic: bool = False,
-                ring: bool = False) -> dict:
+                ring: bool = False, workspace: int = 0) -> dict:
     """Bytes of a block's shared memory by part, as the kernel's
     ``make_layout()`` lays it out at the padded width ``n_hidden`` (the
     wrapper holds the two equal on the card): ``mlp`` (with a net: the
@@ -426,7 +443,11 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
     weight rows, their barriers and counts; bf16 with ``ring``: each
     group's :data:`RING16_STAGES` stages of :data:`RING16_K` rows, their
     barriers and counts) and ``total``.  ``n_layers`` 0: no net.
-    ``mlp_chunks`` does not change it."""
+    ``mlp_chunks`` does not change it.  ``workspace``: the level (``WS_*``)
+    whose arrays live in the device workspace and not in shared memory;
+    with one, also ``workspace``, the bytes of a block's part of it (not in
+    ``total``; the payoff table of the workspace's levels is the wrapper's
+    own tensor, in no part of it)."""
     A, H = game.num_actions, game.num_hands
     P = len(pseudo_leaf_pairs(game))
     words = lambda *ns: sum(_ceil(n, 4) for n in ns)
@@ -437,29 +458,39 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
     if ring and not (mma and n_layers > 1):
         raise ValueError("the ring streams the hidden layers of a bf16 net "
                          "of two or more")
+    if not 0 <= workspace <= max_workspace(n_layers, bf16):
+        raise ValueError(f"no workspace level {workspace} for this net")
+    w0_ring = fma and workspace >= WS_W0  # the f32 first layer streams
     mlp = 0
     if mma:
         mlp = words(mlp_resident_bytes(game, n_hidden, n_layers, ring) // 4,
                     2)
     elif fma:
-        mlp = words(mlp32_words(game, n_hidden), 2)
-    tables = words(P, P, A * A, A * H * H)
+        mlp = words(0 if w0_ring else mlp32_words(game, n_hidden), 2)
+    tables = words(P, P, A * A,
+                   0 if workspace >= WS_PAYOFF else A * H * H)
     LB = lane_block // groups
     last = 1 if use_cfr or optimistic else 0
-    state = [LB, LB, LB, LB * A, LB * 2 * H, LB * H * H, last * LB * H * A,
-             LB * H * A, last * LB * A * H * A, LB * A * H * A, LB * 2 * H,
-             LB * H, LB * A * H, LB * A * H, LB * H, P * LB * H, P * LB * H,
-             P * LB]
+    fp = 0 if use_cfr else 1
+    # Each array of the lanes' state with the level from which it lives in
+    # the workspace (0: never), in make_layout()'s order.
+    state = [(0, LB), (0, LB), (0, LB), (0, LB * A), (0, LB * 2 * H),
+             (WS_BODY, LB * H * H), (WS_BODY, last * LB * H * A),
+             (WS_BODY, LB * H * A), (WS_LEVEL1, last * LB * A * H * A),
+             (WS_LEVEL1, LB * A * H * A), (0, LB * 2 * H), (0, LB * H),
+             (WS_BODY, LB * A * H), (WS_BODY, LB * A * H), (0, LB * H),
+             (WS_ROWS, P * LB * H), (WS_ROWS, P * LB * H), (WS_ROWS, P * LB)]
     if not net:  # leaf values and level-1 values in rows of their own
-        state += [P * LB * H, LB * A * H]
-    if not use_cfr:  # the average policy
-        state += [LB * H * A, LB * A * H * A]
-    lanes = words(*state)
+        state += [(WS_ROWS, P * LB * H), (WS_ROWS, LB * A * H)]
+    state += [(WS_BODY, fp * LB * H * A), (WS_LEVEL1, fp * LB * A * H * A)]
+    moved = lambda lvl: 0 < lvl <= workspace
+    lanes = words(*(n for lvl, n in state if not moved(lvl)))
+    ws_words = words(*(n for lvl, n in state if moved(lvl)))
     rows = words(WARPS // groups * WARP_ROWS * n_hidden) if fma else 0
     if ring16:  # the stages are the block's, the barriers each group's
         stages = words(groups * RING16_STAGES * RING16_K * n_hidden // 2)
         ring_words = stages + groups * words(3 * RING16_STAGES)
-    elif fma and n_layers > 1:
+    elif fma and (n_layers > 1 or w0_ring):
         ring_words = groups * words(RING_STAGES * RING_K * n_hidden,
                                     3 * RING_STAGES)
     else:
@@ -467,7 +498,15 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
     parts = dict(mlp=mlp, tables=tables, lanes=groups * lanes,
                  rows=groups * rows, ring=ring_words)
     parts["total"] = sum(parts.values())
+    if workspace:
+        parts["workspace"] = groups * ws_words
     return {k: 4 * v for k, v in parts.items()}
+
+
+def max_workspace(n_layers: int, bf16: bool) -> int:
+    """The deepest workspace level a launch takes: :data:`WS_W0` for the
+    f32 MLP (its first layer may stream), else :data:`WS_BODY`."""
+    return WS_W0 if n_layers > 0 and not bf16 else WS_BODY
 
 
 def default_mlp_chunks(n_pairs: int, lane_block: int, groups: int,
@@ -513,6 +552,18 @@ def deal_rows(rows: int, warpgroups: int = WARPGROUPS) -> list[list[tuple]]:
                     live.append((g, w, first, min(16, rows - first)))
         turns.append(live)
     return turns
+
+
+def deal_wide(n: int) -> list[tuple[int, int, int]]:
+    """How the iteration body deals a row of ``n`` hands or actions (at
+    most :data:`MAX_ROW`) to one warp where it is wider than 32 (the reach
+    items, the root rows), in the order its sums visit the values:
+    ``(value, lane, register)``, lane ``l`` holding values ``l`` (register
+    0) and ``l + 32`` (register 1), the sum over the first 32 values from
+    register 0, then over the rest from register 1."""
+    if not 1 <= n <= MAX_ROW:
+        raise ValueError(f"a warp takes rows of 1-{MAX_ROW} values, not {n}")
+    return [(v, v % 32, v // 32) for v in range(n)]
 
 
 def effective_interleave(params: SubgameSolvingParams, has_net: bool,
@@ -632,6 +683,16 @@ class KernelPlan(NamedTuple):
     bf16: bool  # bf16 operands (with a net: the tensor-core MLP)
     smem: int  # bytes of shared memory a block takes
     ring: bool = False  # bf16: the hidden layers stream through the ring
+    workspace: int = 0  # the workspace's level (WS_*), 0: none
+    ws_bytes: int = 0  # bytes of a block's part of the workspace
+
+    @property
+    def layout(self) -> str:
+        """``resident`` or ``ring`` (the bf16 hidden layers), with
+        ``+workspace<level>`` where arrays live in the device workspace."""
+        name = "ring" if self.ring else "resident"
+        return name + (f"+workspace{self.workspace}" if self.workspace
+                       else "")
 
 
 def kernel_plan(game: LiarsDice, params: SubgameSolvingParams,
@@ -642,16 +703,93 @@ def kernel_plan(game: LiarsDice, params: SubgameSolvingParams,
     """What :func:`solve` launches for these options, worked out before
     anything is built or launched.  A bf16 net keeps its weights resident
     where that layout fits a block's shared memory, and else streams its
-    hidden layers through the ring where that fits.  Raises ``ValueError``
-    on an option or a net the kernel does not take (a width over 256) and
-    on a layout that does not fit even with the ring (never shrinks the
-    lane block, never falls back)."""
+    hidden layers through the ring where that fits.  A game whose state
+    fits no lane block's shared memory so (:func:`needs_workspace`) moves
+    arrays to the device workspace, level by level, resident weights
+    before the ring at each level, until the rest fits.  Raises
+    ``ValueError`` on an option, a game or a net the kernel does not take
+    (over :data:`MAX_ROW` hands or actions, queries over :data:`MAX_K0`
+    values, a width over 256) and on a layout that does not fit even so
+    (never shrinks the lane block, never falls back)."""
     return _plan(game, params, net, net_compute_dtype, batch, lane_block,
-                 mlp_chunks, interleave, gelu, ablate, allow_ring=True)
+                 mlp_chunks, interleave, gelu, ablate,
+                 _layouts(game, params, net, net_compute_dtype, interleave))
+
+
+# Set by _force_workspace: launches take the workspace at this level (or
+# the deepest the launch takes), whatever fits.  For the checks that hold
+# the workspace to the shared-memory layout bit for bit.
+_FORCED_WORKSPACE: int | None = None
+
+
+@contextlib.contextmanager
+def _force_workspace(level: int):
+    """``with grid2p._force_workspace(level):`` every plan in the block
+    puts the arrays of ``level`` (at least 1, at most the launch's
+    deepest) in the device workspace, resident weights where they fit,
+    else the ring."""
+    global _FORCED_WORKSPACE
+    before, _FORCED_WORKSPACE = _FORCED_WORKSPACE, level
+    try:
+        yield
+    finally:
+        _FORCED_WORKSPACE = before
+
+
+def _n_layers(net) -> int:
+    return 0 if net is None else net.n_layers
+
+
+def _wide(game: LiarsDice, net, bf16: bool) -> bool:
+    """Rows wider than :data:`NARROW_ROW`, or a bf16 first layer deeper
+    than :data:`NARROW_K0`: what only the workspace instantiations hold."""
+    return (max(game.num_hands, game.num_actions) > NARROW_ROW
+            or (bf16 and net is not None
+                and _ceil(game.query_size, 16) > NARROW_K0))
+
+
+def needs_workspace(game: LiarsDice, params: SubgameSolvingParams,
+                    net: CFVNet | None, net_compute_dtype: torch.dtype,
+                    interleave: int = 1) -> bool:
+    """Whether the launches of this game take the device workspace: its
+    rows are wider than a warp or its bf16 first layer deeper than 4 k
+    steps (only the workspace instantiations hold those; no such game's
+    state fits shared memory anyway), or the smallest lane block (1, or 2
+    where ``interleave=2`` applies) fits a block's shared memory neither
+    with the weights resident nor on the bf16 ring."""
+    groups = effective_interleave(params, net is not None, interleave, None)
+    bf16 = net_compute_dtype == torch.bfloat16
+    n_layers = _n_layers(net)
+    if _wide(game, net, bf16):
+        return True
+    rings = (False, True) if bf16 and n_layers > 1 else (False,)
+    return all(smem_layout(game, groups, params.use_cfr, KERNEL_WIDTH,
+                           n_layers, bf16, groups, params.optimistic,
+                           ring)["total"] > SMEM_LIMIT for ring in rings)
+
+
+def _layouts(game, params, net, net_compute_dtype, interleave):
+    """The layouts a launch may take, ``(ring, workspace level)`` in the
+    order they are tried: resident, ring, then (where the game needs it)
+    each level of the workspace with resident weights, then the ring; with
+    a forced workspace only that level."""
+    bf16 = net_compute_dtype == torch.bfloat16
+    n_layers = _n_layers(net)
+    rings = (False, True) if bf16 and n_layers > 1 else (False,)
+    if _FORCED_WORKSPACE is not None:
+        level = max(1, min(_FORCED_WORKSPACE, max_workspace(n_layers, bf16)))
+        return [(ring, level) for ring in rings]
+    out = [] if _wide(game, net, bf16) else [(ring, 0) for ring in rings]
+    if needs_workspace(game, params, net, net_compute_dtype, interleave):
+        out += [(ring, level)
+                for level in range(1, max_workspace(n_layers, bf16) + 1)
+                for ring in rings]
+    return out
 
 
 def _plan(game, params, net, net_compute_dtype, batch, lane_block,
-          mlp_chunks, interleave, gelu, ablate, allow_ring) -> KernelPlan:
+          mlp_chunks, interleave, gelu, ablate, layouts) -> KernelPlan:
+    """The plan at the first of ``layouts`` that fits this lane block."""
     act, groups = _check_knobs(params, net, net_compute_dtype, lane_block,
                                mlp_chunks, interleave, gelu, ablate)
     if net_compute_dtype not in (torch.float32, torch.bfloat16):
@@ -659,11 +797,12 @@ def _plan(game, params, net, net_compute_dtype, batch, lane_block,
     if batch % lane_block:
         raise ValueError(f"batch {batch} is not a multiple of lane_block "
                          f"{lane_block}")
-    if game.num_hands > 32 or game.num_actions > 32:
+    H, A = game.num_hands, game.num_actions
+    if H > MAX_ROW or A > MAX_ROW:
         raise ValueError(
-            f"the kernel deals a row's hands or actions to the threads of a "
-            f"warp: it takes at most 32 of each, not {game.num_hands} hands "
-            f"and {game.num_actions} actions")
+            f"the kernel deals a row's hands or actions to the lanes of a "
+            f"warp, two a lane: it takes at most {MAX_ROW} of each, not {H} "
+            f"hands and {A} actions")
     bf16 = net_compute_dtype == torch.bfloat16
     n_layers = 0
     if net is not None:
@@ -672,28 +811,27 @@ def _plan(game, params, net, net_compute_dtype, batch, lane_block,
         if n_layers < 1:
             raise ValueError("the kernel takes nets of one hidden layer "
                              "or more")
-        if bf16 and _ceil(game.query_size, 16) > MAX_K0:
+        if _ceil(game.query_size, 16) > MAX_K0:
             raise ValueError(
-                f"the tensor-core MLP takes queries of up to {MAX_K0} "
-                f"values, not {game.query_size}")
+                f"the kernel's MLP takes queries of up to {MAX_K0} values, "
+                f"not {game.query_size}")
     mma = bf16 and net is not None
     if mlp_chunks is None:
         mlp_chunks = default_mlp_chunks(len(pseudo_leaf_pairs(game)),
                                         lane_block, groups, mma)
-    layout = lambda ring: smem_layout(
-        game, lane_block, params.use_cfr, KERNEL_WIDTH, n_layers, bf16,
-        groups,
-        params.optimistic, ring)["total"]
-    need, ring = layout(False), False
-    can_ring = mma and n_layers > 1
-    if need > SMEM_LIMIT and can_ring and allow_ring:
-        need, ring = layout(True), True
-    if need > SMEM_LIMIT:
-        how = " with the bf16 ring" if ring else ""
-        raise ValueError(
-            f"lane_block {lane_block} needs {need} B of shared memory per "
-            f"block{how}, more than {SMEM_LIMIT}; use a smaller lane_block")
-    return KernelPlan(act, groups, mlp_chunks, bf16, need, ring)
+    for ring, level in layouts:
+        got = smem_layout(game, lane_block, params.use_cfr, KERNEL_WIDTH,
+                          n_layers, bf16, groups, params.optimistic, ring,
+                          level)
+        if got["total"] <= SMEM_LIMIT:
+            return KernelPlan(act, groups, mlp_chunks, bf16, got["total"],
+                              ring, level, got.get("workspace", 0))
+    how = " with the bf16 ring" if ring else ""
+    if level:
+        how += f" and the workspace's level {level}"
+    raise ValueError(
+        f"lane_block {lane_block} needs {got['total']} B of shared memory "
+        f"per block{how}, more than {SMEM_LIMIT}; use a smaller lane_block")
 
 
 # Lane blocks choose_lane_block tries, largest first.  Blocks above 8 fit
@@ -707,7 +845,9 @@ def choose_lane_block(game: LiarsDice, params: SubgameSolvingParams,
                       ablate: str = "", mlp_chunks: int | None = None) -> int:
     """The largest of :data:`LANE_BLOCKS` that divides ``batch`` and whose
     layout fits a block's shared memory with the weights resident; only
-    where no block fits so, the largest that fits with the bf16 ring
+    where no block fits so, the largest that fits with the bf16 ring; only
+    where none fits either, the workspace's shallowest level at which a
+    block fits, resident weights before the ring
     (:func:`kernel_plan`).  With ``interleave=2`` where it applies, only
     even blocks.  Chosen before anything is built or launched; raises
     ``kernel_plan``'s ``ValueError`` for the smallest candidate when none
@@ -719,14 +859,15 @@ def choose_lane_block(game: LiarsDice, params: SubgameSolvingParams,
         raise ValueError(f"no lane block of {LANE_BLOCKS} divides batch "
                          f"{batch}" + (" into even blocks" if groups == 2
                                        else ""))
-    for allow_ring in (False, True):
+    layouts = _layouts(game, params, net, net_compute_dtype, interleave)
+    for n, layout in enumerate(layouts):
         for lb in blocks:
             try:
                 _plan(game, params, net, net_compute_dtype, batch, lb,
-                      mlp_chunks, interleave, gelu, ablate, allow_ring)
+                      mlp_chunks, interleave, gelu, ablate, [layout])
                 return lb
             except ValueError:
-                if allow_ring and lb == blocks[-1]:
+                if n == len(layouts) - 1 and lb == blocks[-1]:
                     raise  # not even the smallest fits
 
 
@@ -744,11 +885,14 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     to ``solve.launches`` and to ``solve.launches_by_kernel`` under
     :func:`kernel_name`; while ``solve.events`` is a list, appends a pair
     of CUDA events around each launch; keeps the launch's lane block in
-    ``solve.last_lane_block``.  With bf16 operands and a net the kernel
+    ``solve.last_lane_block`` and its layout (:attr:`KernelPlan.layout`)
+    in ``solve.last_layout``.  With bf16 operands and a net the kernel
     runs the MLP on the tensor cores from the block that
-    :func:`pack_mlp_weights` lays out.  Options whose layout does not fit
-    a block's shared memory raise (:func:`kernel_plan`) before anything is
-    built or launched; a launch the card refuses raises."""
+    :func:`pack_mlp_weights` lays out.  Where the plan takes the device
+    workspace, the launch allocates it (:attr:`KernelPlan.ws_bytes` a
+    block).  Options whose layout does not fit a block's shared memory
+    raise (:func:`kernel_plan`) before anything is built or launched; a
+    launch the card refuses raises."""
     dev = beliefs.device
     if dev.type == "cpu":
         return solve_reference(game, params, bids, players, beliefs, t_stop,
@@ -786,14 +930,30 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
 
     n_hidden = n_layers = ln = 0
     width = KERNEL_WIDTH
+    weights = [None] * 4  # bf16: the packed block; f32: pack_f32_net's
     if net is not None:
         n_hidden, n_layers = net.n_hidden, net.n_layers
         ln = int(net.hidden_layers()[0][1] is not None)
         if mma:  # the packed block holds the weights and f32 parameters
-            keep.append(pack_mlp_weights(net, width, plan.ring).to(dev))
+            weights[0] = pack_mlp_weights(net, width, plan.ring).to(dev)
         else:
-            keep += [None if x is None else f32(x)
-                     for x in pack_f32_net(net, width)]
+            weights = [None if x is None else f32(x)
+                       for x in pack_f32_net(net, width)]
+            if plan.workspace >= WS_W0:
+                # The ring's slabs: the first layer's rows padded with
+                # zeros to whole slabs, then the hidden layers.
+                first = _pad(weights[0].reshape(Qpad, width),
+                             _ceil(Qpad, RING_K), width)
+                weights[1] = torch.cat(
+                    [first] + ([] if weights[1] is None else
+                               [weights[1].reshape(-1, width)])).contiguous()
+    # The device workspace: each block's part (uninitialised: the kernel
+    # writes every array before it reads it).
+    ws = None
+    if plan.ws_bytes:
+        ws = torch.empty(B // lane_block * plan.ws_bytes // 4,
+                         dtype=torch.float32, device=dev)
+    keep += weights + [ws]
 
     ints = [B, lane_block, A, H, F, game.total_num_dice, Q, Qpad, n_hidden,
             n_layers, params.num_iters, int(params.linear_update),
@@ -804,17 +964,19 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     # The multipliers are unsigned 32-bit: passed as the ints of their bits.
     ints += [m - 2**32 if m >= 2**31 else m
              for m in work_split(game, lane_block // plan.groups)]
-    ints += [width, ln, int(plan.ring)]
+    ints += [width, ln, int(plan.ring), plan.workspace]
     c_ints = (ctypes.c_int * len(ints))(*ints)
     from rebel_tpu_torch.kernels import build
 
     lib = build.load("grid2_cfr")
     _declare(lib)
     smem = lib.grid2_cfr_smem_bytes(c_ints)
-    if smem != plan.smem:
+    ws_bytes = lib.grid2_cfr_workspace_bytes(c_ints)
+    if (smem, ws_bytes) != (plan.smem, plan.ws_bytes):
         raise RuntimeError(
-            f"the kernel lays out {smem} B of shared memory and smem_layout "
-            f"reckons {plan.smem} B: the two have come apart")
+            f"the kernel lays out {smem} B of shared memory and {ws_bytes} B "
+            f"of workspace a block, and smem_layout reckons {plan.smem} B "
+            f"and {plan.ws_bytes} B: the two have come apart")
     ptrs = (ctypes.c_void_p * len(keep))(
         *[0 if t is None else t.data_ptr() for t in keep]
     )
@@ -839,6 +1001,7 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     solve.launches += 1
     solve.launches_by_kernel[name] += 1
     solve.last_lane_block = lane_block
+    solve.last_layout = plan.layout
     return Grid2Outputs(rvm=rvm, snap0=snap0, snap1=snap1)
 
 
@@ -856,6 +1019,7 @@ KERNEL_NAMES = ("grid2_cfr", "grid2_fp", "grid2_cfr_il2")
 solve.launches = 0
 solve.launches_by_kernel = dict.fromkeys(KERNEL_NAMES, 0)
 solve.last_lane_block = None
+solve.last_layout = None
 # Set to a list to collect ``(kernel name, start, end)`` CUDA events around
 # every launch (read the times after a synchronise); None collects nothing.
 solve.events = None
@@ -864,6 +1028,8 @@ solve.events = None
 def _declare(lib) -> None:
     lib.grid2_cfr_smem_bytes.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.grid2_cfr_smem_bytes.restype = ctypes.c_int
+    lib.grid2_cfr_workspace_bytes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.grid2_cfr_workspace_bytes.restype = ctypes.c_int
     lib.grid2_cfr_launch.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_float), ctypes.c_void_p,

@@ -8,7 +8,7 @@ shift, not by a division.  The kernel runs on the card only; here the
 multipliers must divide exactly every index the kernel meets, at every
 game of ``eval_all``'s defaults and others, for every lane block the
 wrapper may launch, and ``kernel_plan`` must refuse games whose rows do
-not fit a warp.  ``chip_studies.py same-bits``, which holds the body to
+not fit a warp two values a lane.  ``chip_studies.py same-bits``, which holds the body to
 another version of the kernel bit for bit, refuses to run without a
 card.
 """
@@ -83,10 +83,16 @@ def test_one_short_multiplier_misdeals_a_lane_edge():
 
 
 def test_plan_refuses_rows_wider_than_a_warp():
-    """2x6f has 36 hands: no launch, whatever the lane block."""
+    """Rows wider than a warp are dealt two values a lane, up to 64:
+    2x6f (36 hands) launches, 4x3f (81 hands) does not, whatever the lane
+    block."""
     sub = SubgameSolvingParams(num_iters=4, max_depth=2, use_cfr=True)
-    with pytest.raises(ValueError, match="at most 32"):
-        grid2p.kernel_plan(LiarsDice(2, 6), sub, None, torch.float32, 8, 1)
+    plan = grid2p.kernel_plan(LiarsDice(2, 6), sub, None, torch.float32, 8, 1)
+    assert plan.smem <= grid2p.SMEM_LIMIT
+    for lane_block in (1, 8):
+        with pytest.raises(ValueError, match="at most 64"):
+            grid2p.kernel_plan(LiarsDice(4, 3), sub, None, torch.float32, 8,
+                               lane_block)
 
 
 def test_same_bits_study_needs_the_card(tmp_path):
