@@ -106,8 +106,8 @@ MUTANTS = {
         "p.mul_LB = (uint32_t)ints[23] - 1u;",
         CHECK_PHASES),
     "barrier-dropped": (
-        "            V1[(l * A + a1) * H + h] = v;\n        }\n        gsync();",
-        "            V1[(l * A + a1) * H + h] = v;\n        }",
+        "        gsync();\n\n        // ---- 4. root values",
+        "\n        // ---- 4. root values",
         CHECK_PHASES),
     "snapshot-late": (
         "s_tstop[l] = p.t_stop[lane0 + l];",
@@ -180,13 +180,35 @@ MUTANTS = {
     # reaches without the group's barrier after that phase (the
     # shared-memory launches keep it).
     "wide-row-second-value": (
-        "for (int hh = 32; hh < H; ++hh) {",
-        "for (int hh = 32; hh < 32; ++hh) {",
+        "for (int h = 0; h < H; ++h) sum += rw[h];",
+        "for (int h = 0; h < min(H, 32); ++h) sum += rw[h];",
         LARGE_PHASES),
     "workspace-barrier-dropped": (
         "        gsync();\n\n        // ---- 2. terminal values",
         "        if constexpr (!WS) gsync();\n\n"
         "        // ---- 2. terminal values",
+        LARGE_PHASES),
+    # The workspace's new steps: each summing lane of the reach phase reads
+    # its neighbour's row in shared memory (x0's sum from x1's row and so
+    # on); the terminal values compute the payoff from the matches of the
+    # next face, or read the reach values of the next challenge row; the
+    # level-1 arrays' cells sit one cell off (each lane's last cell on the
+    # next lane's first).
+    "reach-rows-shift": (
+        "const float* rw = rows + wl * HP;",
+        "const float* rw = rows + (wl ^ 1) * HP;",
+        LARGE_PHASES),
+    "terminal-payoff-face": (
+        "const float pv = own_h + matches[o * F + face]",
+        "const float pv = own_h + matches[o * F + (face + 1) % F]",
+        LARGE_PHASES),
+    "terminal-reach-row": (
+        "const float* r2 = w.r2liar + (l * A + a1) * H;",
+        "const float* r2 = w.r2liar + (l * A + (a1 + 1) % A) * H;",
+        LARGE_PHASES),
+    "level1-cell-shift": (
+        "a1 * (a1 + 1) / 2 - 1)",
+        "a1 * (a1 + 1) / 2 + 0)",
         LARGE_PHASES),
 }
 

@@ -90,7 +90,7 @@ an H100, ``sm_90a``).  It
 13. ``games-exploit``: at 2x3f (the smallest lane blocks and H = 9), over
    the path's 1024 subgame iterations: CFR and FP in bf16 by the
    statistics of the 1x4f path checks against a plain(card)-vs-plain(cpu)
-   control, and phase 7's FP check (2%) with an f32 MLP on 4 repeats;
+   control, and phase 7's FP check (2%) with an f32 MLP on 2 repeats;
 14. ``run-entry-2x3``: the run entry with the round-5 overrides at
    ``env.num_dice=2 env.num_faces=3``: burn-in and one epoch through the
    fused solve at its chosen lane block, and the checkpoint;
@@ -107,11 +107,11 @@ an H100, ``sm_90a``).  It
    are held to a straight run of three with ``torch.equal``, with the
    epochs' seconds by part; (b) two ranks sharing the card over gloo
    through the run entry (``launcher.num_processes=2 launcher.spmd=true
-   max_epochs=2 exploit_every=1``): its files, rank 0's exploitability,
-   every rank's net equal after each epoch and ``grid2_cfr`` launched on
-   every rank; (c) the SPMD train step on two gloo ranks: the averaged
-   gradient against one process's on both batches, the nets equal across
-   the ranks; (d) the ``fast`` engine with the hands split over two gloo
+   max_epochs=2 exploit_every=2``): its files, rank 0's exploitability
+   at epoch 0, every rank's net equal after each epoch and ``grid2_cfr``
+   launched on every rank; (c) the SPMD train step on two gloo ranks: the
+   averaged gradient against one process's on both batches, the nets equal
+   across the ranks; (d) the ``fast`` engine with the hands split over two gloo
    ranks (1x4f, f64) against the unsplit engine;
 17. ``widths``: nets of other widths and depths (WIDTH_CASES: widths 32,
    100, 128 and 256, 1 to 12 hidden layers, bf16 and f32, CFR and FP, with
@@ -141,7 +141,7 @@ an H100, ``sm_90a``).  It
    (64 hands) and 1x16f (33 actions) on 64 lanes; and the workspace forced
    to its deepest level held to the default layout bit for bit over 1024
    iterations (WORKSPACE_BITS: 1x4f and 2x3f, CFR and FP, bf16 and f32,
-   ``interleave=2``, 2x6f);
+   2x6f, and ``grid2_cfr_il2`` on the workspace at 1x4f and 2x6f);
 20. ``run-entry-2x6``: the run entry with the round-5 overrides at
    ``env.num_dice=2 env.num_faces=6``: burn-in and one epoch through
    ``grid2_cfr`` on the workspace layout, and the checkpoint;
@@ -164,6 +164,10 @@ the kernels line's.
 ``--phases a,b`` runs only the named phases (and the build); such a run
 prints no result line.
 
+The controls on the CPU run in worker processes beside the card's work
+(``CONTROL_WORKERS``): a check whose control is not done yet is held to it
+at the end of a later phase, or at the end of the run.
+
 It exits non-zero, printing no result, without CUDA, outside a checkout,
 or when any check fails.  Weights of the trainers and the checks' data
 are random, made from seeds.
@@ -174,8 +178,10 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import copy
+import functools
 import json
 import math
+import multiprocessing
 import pathlib
 import re
 import subprocess
@@ -449,10 +455,11 @@ GAME_CONTROL_LANES = 64
 # that goes the other way flips a best response or a chaotic CFR
 # iterate.  With an f32 MLP FP does not flip (kernel and plain version
 # 1.5e-4 apart), so FP's check runs in f32, on GAMES_EXPLOIT_REPEATS
-# repeats: the plain version takes about 26 s a repeat there.  CFR's f32
+# repeats: the plain version takes about 26 s a repeat there (4 repeats
+# read 1.5e-4 apart against the limit of 2e-2).  CFR's f32
 # iterates are chaotic (kernel and plain version 111% apart on the same
 # 4 repeats), so CFR is held by the lane statistics only.
-GAMES_EXPLOIT_REPEATS = 4
+GAMES_EXPLOIT_REPEATS = 2
 GAMES_1024_CONTROL_LANES = 32
 # Lanes a solve of the plain version takes there: its iterations are a
 # Python loop of small launches, which larger solves amortise.
@@ -507,9 +514,10 @@ RUN_ENTRY_2X3_ARGS = ["selfplay.engine=pallas",
 # CPU control with the same sums does not see (the CPU control read 0 of
 # 16 lanes apart at 2x6f bf16 CFR where the kernel read 7.4% of 256;
 # PERF.md).  WORKSPACE_BITS: the
-# workspace forced to its deepest level against the default layout, bit
-# for bit over the path's iterations on WORKSPACE_BITS_LANES lanes
-# ((game, solver, operands, interleave)).
+# workspace forced to its deepest level (interleave 2: on the two-group
+# kernel) against the one-group kernel's default layout, bit for bit over
+# the path's iterations on WORKSPACE_BITS_LANES lanes ((game, solver,
+# operands, interleave)).
 LARGE_GAMES = ((2, 5), (3, 3), (2, 6))
 LARGE_LANES = 256
 LARGE_CONTROL_LANES = 16
@@ -529,7 +537,8 @@ WORKSPACE_BITS = (((1, 4), "cfr", "bf16", 1), ((1, 4), "fp", "bf16", 1),
                   ((1, 4), "cfr", "f32", 1), ((1, 4), "fp", "f32", 1),
                   ((2, 3), "cfr", "bf16", 1), ((2, 3), "fp", "bf16", 1),
                   ((2, 3), "cfr", "f32", 1), ((2, 3), "fp", "f32", 1),
-                  ((1, 4), "cfr", "bf16", 2), ((2, 6), "cfr", "bf16", 1))
+                  ((1, 4), "cfr", "bf16", 2), ((2, 6), "cfr", "bf16", 1),
+                  ((2, 6), "cfr", "bf16", 2))
 WORKSPACE_BITS_LANES = 256
 # The run entry at 2x6 (phase 20): the round-5 overrides at 2x6f, burn-in
 # and one epoch with its checkpoint, no exploit evaluation (the full tree
@@ -553,8 +562,9 @@ RUN_ENTRY_DEEP_ARGS = RUN_ENTRY_ARGS + ["model.kwargs.n_layers=3",
 # overrides at full width.  (a) Trainer.run_spmd in this process at world
 # size 1 over NCCL, without exploit evaluations: two epochs, a resume to a
 # third, and a straight run of three.  (b) Two ranks sharing the card over
-# gloo through the run entry, an exploit evaluation on rank 0 at both
-# epochs.  (c) The SPMD train step on two gloo ranks over fixed rings of
+# gloo through the run entry, an exploit evaluation on rank 0 at epoch 0
+# (run-entry evaluates at two epochs; a second one here added 20 s).
+# (c) The SPMD train step on two gloo ranks over fixed rings of
 # SPMD_RING_ROWS rows with given sample slots, SPMD_STEPS steps: the
 # averaged gradient against one process's on both batches put together
 # (f32; the sums run in another order), the nets equal across the ranks.
@@ -564,7 +574,7 @@ RUN_ENTRY_DEEP_ARGS = RUN_ENTRY_ARGS + ["model.kwargs.n_layers=3",
 # (tests/test_hands_sharding.py).
 SPMD_ARGS = ROUND5 + ["exploit=false", "checkpoint_every=1"]
 SPMD_RUN_ARGS = ROUND5 + ["launcher.num_processes=2", "launcher.spmd=true",
-                          "max_epochs=2", "exploit_every=1",
+                          "max_epochs=2", "exploit_every=2",
                           "stall_timeout_s=600"]
 SPMD_TIMEOUT = 600  # seconds a group of ranks may take
 SPMD_RING_ROWS, SPMD_STEPS, SPMD_GRAD_RTOL = 4096, 3, 1e-6
@@ -583,7 +593,36 @@ EXPLOIT_METRICS = ("exploitability_last", "exploitability_avg",
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    _stop_controls()
     sys.exit(1)
+
+
+# The controls of the checks (the plain version on the CPU) run in
+# CONTROL_WORKERS processes of their own, CONTROL_THREADS torch threads
+# each, beside the card's work: a phase submits each control as soon as
+# its inputs are known, and the check is held to it once it is done, at
+# the end of a later phase or of the run.  On the card's host the CPU is
+# slow and shared, and these solves took a third of the run in line.
+CONTROL_WORKERS, CONTROL_THREADS = 2, 3
+_CONTROLS: list = []  # the pool, once main() has made it
+
+
+def _stop_controls() -> None:
+    """Drop the controls not yet started and wait for the running ones."""
+    for pool in _CONTROLS:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _control_solve(threads: int, args: tuple):
+    """``(solve_reference(*args), seconds)`` in a control worker."""
+    import torch
+
+    from rebel_tpu_torch.solving import grid2p
+
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    out = grid2p.solve_reference(*args)
+    return out, time.perf_counter() - t0
 
 
 def instantiation(mangled: str) -> tuple[str, str] | None:
@@ -745,8 +784,34 @@ def main() -> int:
     # Per kernel: the larger games' launches the games phase timed.
     game_modes: dict[str, list] = {}
 
+    # The controls' pool (CONTROL_WORKERS) and the checks that wait on it:
+    # (future, check), the check called with the control's outputs.
+    pool = concurrent.futures.ProcessPoolExecutor(
+        CONTROL_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    _CONTROLS.append(pool)
+    pending: list = []
+    control_s = [0.0]  # the workers' seconds, summed
+
+    def control(*args):
+        """A future of ``solve_reference(*args)`` on CPU tensors."""
+        return pool.submit(_control_solve, CONTROL_THREADS, args)
+
+    def when_done(future, check) -> None:
+        """Hold ``check`` to the outputs of the control ``future``."""
+        pending.append((future, check))
+
+    def settle(block: bool = False) -> None:
+        """Run the checks whose controls are done (``block``: all)."""
+        for item in list(pending):
+            if block or item[0].done():
+                pending.remove(item)
+                out, seconds = item[0].result()
+                control_s[0] += seconds
+                item[1](out)
+
     def lap(name: str) -> None:
         nonlocal mark
+        settle()
         now = time.perf_counter()
         phase_s[name] = round(now - mark, 1)
         mark = now
@@ -977,8 +1042,8 @@ def main() -> int:
         return ((CHECK_ITERS, LONG_ITERS)
                 + ((NONET_ITERS,) if layers == 0 else ()))
 
-    # The plain version on the CPU for every mode's statistics, while the
-    # kernel builds.
+    # The plain version on the CPU for every mode's statistics, submitted
+    # while the kernel builds.
     cfr_controls = {}
     n_ctl = CHECK_CONTROL_LANES
     first = lambda out: grid2p.Grid2Outputs(*(x[:n_ctl] for x in out))
@@ -987,14 +1052,14 @@ def main() -> int:
             net = fresh_net(layers, use_ln, 10 + k, seeded_ln=True)[0]
             for iters in cfr_iters(layers)[1:]:
                 inputs = random_inputs(256, iters, 20 + k)
-                cfr_controls[k, iters] = grid2p.solve_reference(
+                cfr_controls[k, iters] = control(
                     game, cfr(iters, **kw),
                     *[x[:n_ctl].cpu() for x in inputs], net, dtype)
     built.result()
     builder.shutdown()
     print(f"kernel build: grid2_cfr.cu ({', '.join(KERNELS)}): "
           f"{build.build_seconds['grid2_cfr']:.1f} s (beside it, the CPU "
-          "controls of cfr-checks)")
+          "controls of cfr-checks in the control workers)")
     instantiations = build_report(build, grid2p, game, failures)
     lap("build")
 
@@ -1013,8 +1078,9 @@ def main() -> int:
                     if dtype == torch.bfloat16:
                         precision_control(label, args, tol)
                     continue
-                long_check(f"{label} (control on {n_ctl} lanes)", out, ref,
-                           first(ref), cfr_controls[k, iters])
+                when_done(cfr_controls[k, iters], functools.partial(
+                    long_check, f"{label} (control on {n_ctl} lanes)", out,
+                    ref, first(ref)))
         lap("cfr-checks")
 
     # ------------------------------------- 3. grid2_fp vs plain version
@@ -1050,11 +1116,11 @@ def main() -> int:
                     if dtype == torch.bfloat16:
                         precision_control(label, args, tol)
                     continue
-                cpu = grid2p.solve_reference(
+                when_done(control(
                     game, fp(iters, **kw), *[x[:n_ctl].cpu() for x in inputs],
-                    net, dtype)
-                long_check(f"{label} (control on {n_ctl} lanes)", out, ref,
-                           first(ref), cpu)
+                    net, dtype), functools.partial(
+                        long_check, f"{label} (control on {n_ctl} lanes)",
+                        out, ref, first(ref)))
         lap("fp-checks")
 
     # ----------------------------------------- 4./8. self-play trainers
@@ -1236,9 +1302,10 @@ def main() -> int:
                             "outputs")
 
     def control_1024(args):
-        """The plain version on the CPU on the first CONTROL_LANES lanes."""
+        """A future of the plain version on the CPU on the first
+        CONTROL_LANES lanes."""
         n = CONTROL_LANES
-        return n, grid2p.solve_reference(
+        return n, control(
             game, args[1], *[x[:n].cpu() for x in args[2:6]],
             copy.deepcopy(args[6]).cpu(), torch.bfloat16)
 
@@ -1246,11 +1313,11 @@ def main() -> int:
         """CFR over the path's iterations on the walked episodes: the
         statistics of long_check against a control on the CPU."""
         n, cpu = control_1024(args)
-        long_check(f"grid2_cfr bf16 main shapes, walked episodes: B={B} "
-                   f"iters={ITERS} (ties left out; control on {n} lanes)",
-                   out, ref, grid2p.Grid2Outputs(*(x[:n] for x in ref)), cpu,
-                   keys=("rvm_mean", "rvm_max"), keep=~ties,
-                   keep_part=~ties[:n])
+        when_done(cpu, functools.partial(
+            long_check, f"grid2_cfr bf16 main shapes, walked episodes: "
+            f"B={B} iters={ITERS} (ties left out; control on {n} lanes)",
+            out, ref, grid2p.Grid2Outputs(*(x[:n] for x in ref)),
+            keys=("rvm_mean", "rvm_max"), keep=~ties, keep_part=~ties[:n]))
 
     def fp_check_1024(args, out, ref, ties) -> None:
         """FP over the path's iterations on the walked episodes: its
@@ -1258,11 +1325,12 @@ def main() -> int:
         or FP_LONG_FACTOR times a control on the CPU where that is
         larger."""
         n, cpu = control_1024(args)
-        long_check(f"grid2_fp bf16 main shapes, walked episodes: B={B} "
-                   f"iters={ITERS} (ties left out; control on {n} lanes)",
-                   out, ref, grid2p.Grid2Outputs(*(x[:n] for x in ref)), cpu,
-                   keep=~ties, keep_part=~ties[:n], factor=FP_LONG_FACTOR,
-                   floor=FP_LONG_LIMIT)
+        when_done(cpu, functools.partial(
+            long_check, f"grid2_fp bf16 main shapes, walked episodes: "
+            f"B={B} iters={ITERS} (ties left out; control on {n} lanes)",
+            out, ref, grid2p.Grid2Outputs(*(x[:n] for x in ref)),
+            keep=~ties, keep_part=~ties[:n], factor=FP_LONG_FACTOR,
+            floor=FP_LONG_LIMIT))
 
     cfr_trainer = None
     if any(p in phases for p in ("cfr-selfplay", "cfr-shapes",
@@ -1875,14 +1943,14 @@ def main() -> int:
                             if bf16:
                                 precision_control(label, args, tol)
                             continue
-                        cpu = grid2p.solve_reference(
+                        when_done(control(
                             g_, make(iters), *[x[:n].cpu() for x in inputs],
-                            net_cpu, dtype)
-                        long_check(f"{label} (control on {n} lanes)", out,
-                                   ref, grid2p.Grid2Outputs(
-                                       *(x[:n] for x in ref)), cpu,
-                                   flips=FP_TIE_SHARE if solver == "fp"
-                                   else None)
+                            net_cpu, dtype), functools.partial(
+                                long_check, f"{label} (control on {n} lanes)",
+                                out, ref, grid2p.Grid2Outputs(
+                                    *(x[:n] for x in ref)),
+                                flips=FP_TIE_SHARE if solver == "fp"
+                                else None))
                     args = (g_, make(ITERS), *random_inputs(B, ITERS, 70, g_),
                             net)
                     ms, out = time_kernel(args, reps=1, dtype=dtype)
@@ -1943,22 +2011,23 @@ def main() -> int:
         net = recursive_eval._load_net(str(ROOT / ckpt), g23, "cuda")[1]
         inputs = random_inputs(GAME_LANES, ITERS, 80, g23)
         args = (g23, make(ITERS), *inputs, net)
+        n = GAMES_1024_CONTROL_LANES
+        cpu = control(g23, make(ITERS), *[x[:n].cpu() for x in inputs],
+                      copy.deepcopy(net).cpu(), torch.bfloat16)
         out = grid2p.solve(*args, torch.bfloat16)
         lb = grid2p.solve.last_lane_block
         ref = grid2p.solve_reference(*args, torch.bfloat16)
-        n = GAMES_1024_CONTROL_LANES
-        cpu = grid2p.solve_reference(
-            g23, make(ITERS), *[x[:n].cpu() for x in inputs],
-            copy.deepcopy(net).cpu(), torch.bfloat16)
         label = (f"games 2x3 {solver} bf16: B={GAME_LANES} iters={ITERS} "
                  f"lane block {lb} (control on {n} lanes)")
         part = grid2p.Grid2Outputs(*(x[:n] for x in ref))
         if solver == "cfr":
-            long_check(label, out, ref, part, cpu,
-                       keys=("rvm_mean", "rvm_max"))
+            when_done(cpu, functools.partial(
+                long_check, label, out, ref, part,
+                keys=("rvm_mean", "rvm_max")))
         else:
-            long_check(label, out, ref, part, cpu, factor=FP_LONG_FACTOR,
-                       floor=FP_LONG_LIMIT, flips=FP_TIE_SHARE)
+            when_done(cpu, functools.partial(
+                long_check, label, out, ref, part, factor=FP_LONG_FACTOR,
+                floor=FP_LONG_LIMIT, flips=FP_TIE_SHARE))
 
     if "games-exploit" in phases:
         g23 = LiarsDice(2, 3)
@@ -2343,12 +2412,13 @@ def main() -> int:
                     continue
                 if solver == "cfr":
                     n = CONTROL_LANES
-                    cpu = grid2p.solve_reference(
+                    when_done(control(
                         game, make(iters), *[x[:n].cpu() for x in inputs],
-                        net, dtype)
-                    long_check(f"{label} (control on {n} lanes)", out, ref,
-                               grid2p.Grid2Outputs(*(x[:n] for x in ref)),
-                               cpu, flips=TIE_SHARE)
+                        net, dtype), functools.partial(
+                            long_check, f"{label} (control on {n} lanes)",
+                            out, ref,
+                            grid2p.Grid2Outputs(*(x[:n] for x in ref)),
+                            flips=TIE_SHARE))
                     continue
                 sums = WIDTH_CONTROL_SUMS[dname]
                 with chip_studies._products(chip_studies.ORDERS[sums]):
@@ -2492,15 +2562,11 @@ def main() -> int:
     # ------------------- 19. the games of up to 64 hands and 64 actions
     def large_net(g_, seed: int):
         """A fresh 256x2 net of ``g_`` from ``seed`` on the card, with
-        LayerNorm's scale and bias drawn from the seed too (U(0.5, 1.5),
-        U(-0.5, 0.5))."""
-        g = torch.Generator().manual_seed(seed)
-        net = CFVNet(g_, 256, 2, True, generator=g)
-        with torch.no_grad():
-            for _, ln in net.hidden_layers():
-                ln.weight.copy_(0.5 + torch.rand(256, generator=g))
-                ln.bias.copy_(torch.rand(256, generator=g) - 0.5)
-        return net.to(dev)
+        LayerNorm's scale and bias drawn from the seed too
+        (``mlp_breakdown.large_net``)."""
+        from rebel_tpu_torch.mlp_breakdown import large_net as fresh
+
+        return fresh(g_, seed).to(dev)
 
     def plan_line(g_, sub, net, dtype, batch) -> tuple:
         """``(lane block, plan)`` the wrapper takes, printed."""
@@ -2512,7 +2578,7 @@ def main() -> int:
               f"{plan.mlp_chunks}")
         return lb, plan
 
-    def hold_large(g_, solver, dtype, net, lanes, seeds, control=None,
+    def hold_large(g_, solver, dtype, net, lanes, seeds, cpu_control=None,
                    long=True):
         """The kernel against its plain version at ``g_`` on ``lanes``
         lanes: over CHECK_ITERS iterations to the 1x4f limits of a fresh
@@ -2520,7 +2586,7 @@ def main() -> int:
         where BF16_LONG_ONLY says two correct plain versions part beyond
         them; over LONG_ITERS by the statistics against a control: f32,
         the plain version on the CPU on the first LARGE_CONTROL_LANES
-        lanes (``control``: that solve, computed beforehand); bf16, the
+        lanes (``cpu_control``: a future of that solve); bf16, the
         plain version with the tensor cores' chained sums on the same
         lanes, as the widths phase holds FP (CFR: chaotic lanes counted,
         FP: flip lanes).  ``seeds``: of the inputs over CHECK_ITERS and
@@ -2562,27 +2628,25 @@ def main() -> int:
                            ref, other, flips=flips)
                 continue
             n = LARGE_CONTROL_LANES
-            cpu = control.result() if control is not None else \
-                grid2p.solve_reference(g_, make(iters),
-                                       *[x[:n].cpu() for x in inputs],
-                                       copy.deepcopy(net).cpu(), dtype)
             if solver == "fp":
                 tie_check(label, out, ref, tol)
-            long_check(f"{label} (control on {n} lanes)", out, ref,
-                       grid2p.Grid2Outputs(*(x[:n] for x in ref)), cpu,
-                       flips=FP_TIE_SHARE if solver == "fp" else None)
+            when_done(cpu_control or control(
+                g_, make(iters), *[x[:n].cpu() for x in inputs],
+                copy.deepcopy(net).cpu(), dtype), functools.partial(
+                    long_check, f"{label} (control on {n} lanes)", out, ref,
+                    grid2p.Grid2Outputs(*(x[:n] for x in ref)),
+                    flips=FP_TIE_SHARE if solver == "fp" else None))
 
     def large_games() -> None:
         """LARGE_GAMES, CFR and FP, bf16 and f32, fresh 256x2 nets: the
         plan, then ``hold_large`` on LARGE_LANES lanes (the f32 controls
-        computed on the CPU beside the card's work), and one timed launch
+        submitted to the control workers first), and one timed launch
         of B lanes x ITERS iterations beside the bound of the game's MLP
         FLOP.  Then the boundary games on BOUNDARY_LANES lanes (over
         CHECK_ITERS iterations, or LONG_ITERS where BF16_LONG_ONLY says),
         and the workspace held to the shared-memory layout bit for bit
         (WORKSPACE_BITS)."""
         n = LARGE_CONTROL_LANES
-        pool = concurrent.futures.ThreadPoolExecutor(2)
         cases = []
         for k, (nd, nf) in enumerate(LARGE_GAMES):
             g_ = LiarsDice(nd, nf)
@@ -2591,15 +2655,15 @@ def main() -> int:
             for solver in ("cfr", "fp"):
                 make = cfr if solver == "cfr" else fp
                 for dtype in (torch.bfloat16, torch.float32):
-                    control = None
+                    cpu = None
                     if dtype == torch.float32:
                         inputs = random_inputs(LARGE_LANES, LONG_ITERS,
                                                310 + k, g_)
-                        control = pool.submit(
-                            grid2p.solve_reference, g_, make(LONG_ITERS),
-                            *[x[:n].cpu() for x in inputs], net_cpu, dtype)
-                    cases.append((g_, solver, dtype, net, control, k))
-        for g_, solver, dtype, net, control, k in cases:
+                        cpu = control(g_, make(LONG_ITERS),
+                                      *[x[:n].cpu() for x in inputs],
+                                      net_cpu, dtype)
+                    cases.append((g_, solver, dtype, net, cpu, k))
+        for g_, solver, dtype, net, cpu, k in cases:
             bf16 = dtype == torch.bfloat16
             nd, nf = g_.num_dice, g_.num_faces
             name = f"{nd}x{nf} {solver} {'bf16' if bf16 else 'f32'}"
@@ -2610,7 +2674,7 @@ def main() -> int:
             lb, plan = plan_line(g_, make(ITERS), net, dtype, B)
             lanes_lb, _ = plan_line(g_, make(ITERS), net, dtype, LARGE_LANES)
             hold_large(g_, solver, dtype, net, LARGE_LANES,
-                       (320 + k, 310 + k), control)
+                       (320 + k, 310 + k), cpu)
             if grid2p.solve.last_lane_block != lanes_lb:
                 failures.append(f"large-games {name}: launched at lane block "
                                 f"{grid2p.solve.last_lane_block}, chosen "
@@ -2633,7 +2697,6 @@ def main() -> int:
             if not finite(out):
                 failures.append(f"large-games {name}: non-finite outputs at "
                                 f"B={B}")
-        pool.shutdown()
         for k, (nd, nf) in enumerate(BOUNDARY_GAMES):
             g_ = LiarsDice(nd, nf)
             net = large_net(g_, 340 + k)
@@ -2651,26 +2714,33 @@ def main() -> int:
 
     def workspace_bits() -> None:
         """WORKSPACE_BITS: the launch with the workspace forced to its
-        deepest level against the default layout, the same lanes over the
-        path's iterations, bit for bit."""
+        deepest level (with ``interleave=2``: on the two-group kernel)
+        against the one-group kernel's default layout, the same lanes over
+        the path's iterations, bit for bit."""
         for (nd, nf), solver, dname, il in WORKSPACE_BITS:
             g_ = LiarsDice(nd, nf)
             dtype = torch.bfloat16 if dname == "bf16" else torch.float32
-            args = (g_, (cfr if solver == "cfr" else fp)(ITERS),
+            sub = (cfr if solver == "cfr" else fp)(ITERS)
+            args = (g_, sub,
                     *random_inputs(WORKSPACE_BITS_LANES, ITERS, 360, g_),
                     large_net(g_, 361), dtype)
-            a = grid2p.solve(*args, interleave=il)
+            a = grid2p.solve(*args)
             layouts = [grid2p.solve.last_layout]
+            kernel = grid2p.kernel_name(sub, True, il)
+            before = grid2p.solve.launches_by_kernel[kernel]
             with grid2p._force_workspace(grid2p.WS_W0):
                 b = grid2p.solve(*args, interleave=il)
             layouts.append(grid2p.solve.last_layout)
-            ok = (finite(a) and "workspace" in layouts[1]
+            ran = grid2p.solve.launches_by_kernel[kernel] == before + 1
+            ok = (finite(a) and "workspace" in layouts[1] and ran
                   and all(torch.equal(x, y) for x, y in zip(a, b)))
             print(f"check large-games workspace bits {nd}x{nf} {solver} "
                   f"{dname}{' interleave=2' if il == 2 else ''}: "
                   f"B={WORKSPACE_BITS_LANES} iters={ITERS}, {layouts[0]} "
-                  f"against {layouts[1]}: bit-identical (max_abs_diff="
-                  f"{max_diff(a, b):.3e}) {'ok' if ok else 'MISS'}")
+                  f"against {kernel} {layouts[1]}"
+                  f"{'' if ran else ' (not launched)'}: bit-identical "
+                  f"(max_abs_diff={max_diff(a, b):.3e}) "
+                  f"{'ok' if ok else 'MISS'}")
             if not ok:
                 failures.append(f"large-games workspace bits {nd}x{nf} "
                                 f"{solver} {dname}")
@@ -2727,6 +2797,12 @@ def main() -> int:
         run_entry_2x6()
         lap("run-entry-2x6")
 
+    t0 = time.perf_counter()
+    settle(block=True)
+    pool.shutdown()
+    phase_s["controls: wait at the end"] = round(time.perf_counter() - t0, 1)
+    print(f"controls: {control_s[0]:.1f} s of solves in {CONTROL_WORKERS} "
+          f"workers of {CONTROL_THREADS} threads beside the card's work")
     print(f"phase host seconds: {phase_s}")
     print(f"whole run: {time.perf_counter() - start:.1f} s, the build "
           "included")
@@ -2761,4 +2837,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        _stop_controls()

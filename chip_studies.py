@@ -7,7 +7,8 @@ not checks: what ``PERF.md`` quotes beside ``chip_smoke.py``'s readings.
     python3 chip_studies.py sum-order --out DIR [--game 2x3] [--seed 62]
         [--fresh WIDTHxLAYERS --net-seed N --solver cfr]
     python3 chip_studies.py eval-sum-order --out DIR [--game 2x3]
-    python3 chip_studies.py same-bits --old PATH --out DIR
+    python3 chip_studies.py same-bits --old PATH --out DIR [--large
+        [--cells CELL ...]]
     python3 chip_studies.py launches --out DIR
     python3 chip_studies.py plain-ms --out DIR
 
@@ -51,7 +52,16 @@ the repo's trained net, no net, and ``interleave=2`` at 1x4f; 1024 lanes,
 1024 iterations), in processes taken in turns (:data:`SAME_BITS_TURNS`);
 the three outputs are compared with ``torch.equal`` and each mode's
 launch is timed for both versions on the one card (``ms_old``,
-``ms_tree``); rows in ``DIR/same_bits.json``.  ``launches`` (the CPU, about
+``ms_tree``); rows in ``DIR/same_bits.json``.  ``same-bits --large``
+(card only, some 8 minutes): the same at :data:`SAME_BITS_LARGE`, the
+games whose launches keep arrays in the device workspace (2x5f, 3x3f,
+2x6f, 3x4f and 1x16f, CFR and FP, bf16 and f32 operands, the fresh 256x2
+nets of ``chip_smoke.py large-games``, made once by this checkout's
+``mlp_breakdown.large_net`` and loaded by both versions; 1024 lanes, 1024
+iterations), each version's launch warmed up by one of 4 iterations and
+then timed once a process, with the card's name and power limit on every
+row; ``--cells '2x5 cfr f32' ...`` takes only those; rows in
+``DIR/same_bits_large.json``.  ``launches`` (the CPU, about
 ten minutes): how many launches of the fused solve a sampled evaluation
 makes at each game of ``eval_all``'s defaults, counted from the code
 (the frontier solver's chunks, each one launch on the card, with the
@@ -245,6 +255,23 @@ SAME_BITS += [((1, 4), "cfr", dtype, 2) for dtype in ("bf16", "f32")]
 # (game, solver, lane block), each against the mode of SAME_BITS with the
 # same game and solver in bf16.
 SAME_BITS_RING = [((2, 3), "cfr", 4), ((2, 3), "fp", 4)]
+# same-bits --large: the workspace games, (game, solver, operands, 1).
+SAME_BITS_LARGE = [((nd, nf), solver, dtype, 1)
+                   for nd, nf in ((2, 5), (3, 3), (2, 6), (3, 4), (1, 16))
+                   for solver in ("cfr", "fp") for dtype in ("bf16", "f32")]
+
+
+def _timed(solve) -> tuple:
+    """``(solve()'s outputs on the CPU, ms)``, timed with CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = solve()
+    end.record()
+    end.synchronize()
+    return [x.cpu() for x in out], start.elapsed_time(end)
 
 
 def same_bits_launch(args) -> list[dict]:
@@ -256,6 +283,7 @@ def same_bits_launch(args) -> list[dict]:
     import rebel_tpu_torch
     from rebel_tpu_torch.eval.recursive_eval import _load_net
     from rebel_tpu_torch.games.liars_dice import LiarsDice
+    from rebel_tpu_torch.nets.cfv_net import CFVNet
     from rebel_tpu_torch.solving import grid2p
     from rebel_tpu_torch.solving.params import SubgameSolvingParams
 
@@ -266,6 +294,38 @@ def same_bits_launch(args) -> list[dict]:
     dev = torch.device("cuda")
     lanes, iters = SAME_BITS_LANES, SAME_BITS_ITERS
     rows = []
+    if args.large:
+        states = torch.load(args.nets)
+        for (nd, nf), solver, dtype, _ in SAME_BITS_LARGE:
+            if args.cells and f"{nd}x{nf} {solver} {dtype}" not in args.cells:
+                continue
+            game = LiarsDice(nd, nf)
+            A, H = game.num_actions, game.num_hands
+            g = torch.Generator().manual_seed(SAME_BITS_SEED)
+            expo = -torch.log(torch.rand((lanes, 2, H), generator=g))
+            inputs = [torch.randint(-1, A - 1, (lanes,), generator=g),
+                      torch.randint(0, 2, (lanes,), generator=g),
+                      expo / expo.sum(-1, keepdim=True),
+                      torch.randint(0, iters + 1, (lanes,), generator=g)]
+            net = CFVNet(game, 256, 2, True)
+            net.load_state_dict(states[nd, nf])
+            net = net.to(dev)
+            call = lambda n: grid2p.solve(
+                game, SubgameSolvingParams(num_iters=n, max_depth=2,
+                                           use_cfr=solver == "cfr",
+                                           linear_update=True),
+                *[x.to(dev) for x in inputs[:3]],
+                torch.clamp(inputs[3], max=n).to(dev), net,
+                torch.float32 if dtype == "f32" else torch.bfloat16)
+            call(4)
+            out, ms = _timed(lambda: call(iters))
+            rows.append(dict(game=f"{nd}x{nf}", solver=solver, mlp=dtype,
+                             interleave=1, lanes=lanes, iters=iters,
+                             lane_block=grid2p.solve.last_lane_block,
+                             layout=grid2p.solve.last_layout, ms=[ms],
+                             out=out))
+        torch.save(rows, args.out)
+        return rows
     for (nd, nf), solver, dtype, interleave in SAME_BITS:
         game = LiarsDice(nd, nf)
         A, H = game.num_actions, game.num_hands
@@ -337,23 +397,42 @@ def same_bits(args) -> list[dict]:
                          f"version, not {args.old}")
     roots = {"old": old_root, "tree": ROOT}
     runs = {"old": [], "tree": []}
+    large = []
+    if args.large:
+        # The fresh nets, made once by this checkout's package and loaded
+        # by both versions'.
+        from rebel_tpu_torch.games.liars_dice import LiarsDice
+        from rebel_tpu_torch.mlp_breakdown import large_net
+
+        nets = args.out.resolve() / "large_nets.pt"
+        torch.save({game: large_net(LiarsDice(*game)).state_dict()
+                    for game in dict.fromkeys(g for g, *_ in SAME_BITS_LARGE)},
+                   nets)
+        large = ["--large", "--nets", str(nets)] + (
+            ["--cells", *args.cells] if args.cells else [])
     for i, version in enumerate(SAME_BITS_TURNS):
         path = args.out.resolve() / f"same_bits_{version}_{i}.pt"
         subprocess.run([sys.executable, str(ROOT / "chip_studies.py"),
                         "same-bits-launch", "--root", str(roots[version]),
                         "--out", str(path)]
-                       + (["--ring"] if version == "tree" else []),
+                       + (large if args.large else
+                          ["--ring"] if version == "tree" else []),
                        cwd=roots[version], check=True)
         runs[version].append(torch.load(path))
         path.unlink()
+    from rebel_tpu_torch.bench import card_name_and_power_limit
+
+    card = card_name_and_power_limit()
     rows = []
     tree_rows = [r for r in runs["tree"][0] if not r.get("ring")]
     for k, old in enumerate(runs["old"][0]):
         tree = tree_rows[k]
         row = {key: old[key] for key in ("game", "solver", "mlp",
                                          "interleave", "lanes", "iters")}
-        row.update(lane_block_old=old["lane_block"],
+        row.update(card=card, lane_block_old=old["lane_block"],
                    lane_block_tree=tree["lane_block"])
+        if args.large:
+            row.update(layout_old=old["layout"], layout_tree=tree["layout"])
         for version, got in runs.items():
             if version == "tree":
                 got = [[r for r in run if not r.get("ring")] for run in got]
@@ -369,6 +448,7 @@ def same_bits(args) -> list[dict]:
                 max_abs_diff=float((a - b).abs().max()),
                 lanes_differing=int((a != b).flatten(1).any(1).sum()))
         row["equal"] = all(row[k]["equal"] for k in ("rvm", "snap0", "snap1"))
+        row["speedup"] = row["ms_old"] / row["ms_tree"]
         rows.append(row)
         print(json.dumps(row), flush=True)
     # The ring beside the resident weights, in the tree's processes.
@@ -388,7 +468,8 @@ def same_bits(args) -> list[dict]:
                              zip(ring["out"], resident["out"])))
         rows.append(row)
         print(json.dumps(row), flush=True)
-    (args.out / "same_bits.json").write_text(json.dumps(rows, indent=1))
+    (args.out / ("same_bits_large.json" if args.large
+                 else "same_bits.json")).write_text(json.dumps(rows, indent=1))
     return rows
 
 
@@ -695,11 +776,11 @@ PLAIN_MODES += [((1, 4), "cfr", "bf16", (256, 3)),
                 ((1, 4), "cfr", "bf16", (32, 2)),
                 ((1, 4), "cfr", "f32", (32, 2))]
 # plain-ms --large: the games of up to 64 hands and actions, with the
-# fresh 256x2 nets of chip_smoke.py's large-games phase (LARGE_NET_SEEDS).
+# fresh 256x2 nets of chip_smoke.py's large-games phase
+# (mlp_breakdown.LARGE_NET_SEEDS).
 PLAIN_LARGE_MODES = [((nd, nf), solver, mlp, (256, 2))
                      for nd, nf in ((2, 5), (3, 3), (2, 6), (3, 4))
                      for solver in ("cfr", "fp") for mlp in ("bf16", "f32")]
-LARGE_NET_SEEDS = {(2, 5): 300, (3, 3): 301, (2, 6): 302, (3, 4): 340}
 GAME_NETS = {**NETS, ((1, 5), "fp"): FP_NETS[1, 5],
              ((1, 6), "cfr"): "results/liars_sp/r5_1x6cfr/ckpt/epoch990.params",
              ((1, 6), "fp"): FP_NETS[1, 6]}
@@ -713,6 +794,7 @@ def plain_ms(args) -> list[dict]:
     from rebel_tpu_torch.bench import card_name_and_power_limit
     from rebel_tpu_torch.eval.recursive_eval import _load_net
     from rebel_tpu_torch.games.liars_dice import LiarsDice
+    from rebel_tpu_torch.mlp_breakdown import LARGE_NET_SEEDS, large_net
     from rebel_tpu_torch.nets.cfv_net import CFVNet
     from rebel_tpu_torch.solving import grid2p
     from rebel_tpu_torch.solving.params import SubgameSolvingParams
@@ -738,13 +820,7 @@ def plain_ms(args) -> list[dict]:
         if args.large:
             seed = LARGE_NET_SEEDS[nd, nf]
             path = f"256x2 from seed {seed}, LayerNorm drawn"
-            g_net = torch.Generator().manual_seed(seed)
-            net = CFVNet(game, 256, 2, True, generator=g_net)
-            with torch.no_grad():
-                for _, ln in net.hidden_layers():
-                    ln.weight.copy_(0.5 + torch.rand(256, generator=g_net))
-                    ln.bias.copy_(torch.rand(256, generator=g_net) - 0.5)
-            net = net.to(dev)
+            net = large_net(game, seed).to(dev)
         elif mlp != "none":
             if (width, layers) == (256, 2):
                 net = _load_net(str(ROOT / path), game, "cuda")[1]
@@ -876,6 +952,11 @@ def main(argv=None) -> list[dict]:
     b = sub.add_parser("same-bits")
     b.add_argument("--old", type=pathlib.Path, required=True)
     b.add_argument("--out", type=pathlib.Path, required=True)
+    b.add_argument("--large", action="store_true",
+                   help="the workspace games (SAME_BITS_LARGE) in place of "
+                        "SAME_BITS")
+    b.add_argument("--cells", nargs="+", default=None,
+                   help="with --large: only these cells, e.g. '2x5 cfr f32'")
     n = sub.add_parser("launches")
     n.add_argument("--out", type=pathlib.Path, required=True)
     pm = sub.add_parser("plain-ms")
@@ -890,6 +971,9 @@ def main(argv=None) -> list[dict]:
     bl.add_argument("--root", type=pathlib.Path, required=True)
     bl.add_argument("--out", type=pathlib.Path, required=True)
     bl.add_argument("--ring", action="store_true")
+    bl.add_argument("--large", action="store_true")
+    bl.add_argument("--nets", type=pathlib.Path)
+    bl.add_argument("--cells", nargs="+", default=None)
     args = ap.parse_args(argv)
     if args.study == "same-bits-launch":
         sys.path.insert(0, str(args.root))

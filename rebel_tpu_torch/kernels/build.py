@@ -7,7 +7,9 @@ the source and flags, and loads the shared library; ``defines`` adds a
 ``-D`` for each (``mlp_breakdown``'s variants).  A source listed in
 :data:`UNITS` is compiled in that many units side by side, one ``nvcc``
 each with ``-DGRID2_UNIT=u`` (each unit holds one of its kernels'
-instantiations); the objects are linked into the one library.  A plain C interface
+instantiations); the objects are linked into the one library.  A build
+for a few launches only (``units``: ``mlp_breakdown``'s variants) compiles
+the other units as stubs (``-DGRID2_STUB``) whose launches fail.  A plain C interface
 keeps PyTorch's headers out of the compile: it takes seconds where a
 ``torch.utils.cpp_extension`` build takes minutes.  Nothing is compiled
 when this module is imported, and a missing ``nvcc`` or a failed compile
@@ -71,20 +73,26 @@ def flags(defines: tuple[str, ...] = ()) -> list[str]:
     return NVCC_FLAGS + [f"-D{d}" for d in defines]
 
 
-def library_path(name: str, defines: tuple[str, ...] = ()) -> pathlib.Path:
+def library_path(name: str, defines: tuple[str, ...] = (),
+                 units: tuple[int, ...] | None = None) -> pathlib.Path:
     src = (KERNEL_DIR / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(
         src + " ".join(flags(defines)).encode()
-        + f" units={UNITS.get(name, 1)}".encode()).hexdigest()
+        + f" units={UNITS.get(name, 1)}".encode()
+        + (b"" if units is None else f" only={sorted(units)}".encode())
+    ).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str, defines: tuple[str, ...] = ()) -> pathlib.Path:
+def build(name: str, defines: tuple[str, ...] = (),
+          units: tuple[int, ...] | None = None) -> pathlib.Path:
     """Compile ``kernels/<name>.cu`` with ``defines`` unless a build of
     this exact source and these flags exists; returns the library path.
-    The compiler's output (register and shared-memory use per kernel) is
-    kept beside it as ``.log``."""
-    so = library_path(name, defines)
+    ``units``: of a source in :data:`UNITS`, the units to compile in full
+    (None: all); the others are stubs whose launches fail.  The compiler's
+    output (register and shared-memory use per kernel) is kept beside it
+    as ``.log``."""
+    so = library_path(name, defines, units)
     key = " ".join((name, *defines))
     if so.exists():
         build_seconds.setdefault(key, 0.0)
@@ -93,10 +101,11 @@ def build(name: str, defines: tuple[str, ...] = ()) -> pathlib.Path:
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     src = str(KERNEL_DIR / f"{name}.cu")
     nvcc = nvcc_path()
-    units = [[f"-DGRID2_UNIT={u}"] for u in range(UNITS[name])] \
+    stub = lambda u: [] if units is None or u in units else ["-DGRID2_STUB"]
+    unit_flags = [[f"-DGRID2_UNIT={u}", *stub(u)] for u in range(UNITS[name])] \
         if name in UNITS else [[]]
     objs = [str(so.with_suffix(f".{os.getpid()}.u{u}.o"))
-            for u in range(len(units))]
+            for u in range(len(unit_flags))]
     compile_flags = [f for f in flags(defines) if f != "-shared"]
 
     def compile_unit(unit, obj):
@@ -106,8 +115,8 @@ def build(name: str, defines: tuple[str, ...] = ()) -> pathlib.Path:
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
-        procs = list(pool.map(compile_unit, units, objs))
+    with concurrent.futures.ThreadPoolExecutor(len(unit_flags)) as pool:
+        procs = list(pool.map(compile_unit, unit_flags, objs))
     out = "".join(proc.stdout for proc in procs)
     rc = max(proc.returncode for proc in procs)
     if rc == 0:

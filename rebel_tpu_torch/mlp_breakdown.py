@@ -1,7 +1,7 @@
 """Where a launch of the fused solve spends its time, on the card.
 
     python -m rebel_tpu_torch.mlp_breakdown [--rounds 2] [--batch 1024]
-        [--parts mlp,mlp32,body,ring16]
+        [--parts mlp,mlp32,body,ring16,large]
 
 Builds ``kernels/grid2_cfr.cu`` with parts taken out (``-DBREAKDOWN=`` a
 mask of the source's ``CUT_*`` switches, :data:`CUTS`) beside the build as
@@ -35,6 +35,15 @@ reading.
   1x4f at its chosen lane block, and the 256x2 net at 2x3f at lane block
   4, CFR and FP, each beside the resident layout at the lane block it
   fits (1x4f: none; 2x3f: 2).
+* ``large``: the body's phases and the bf16 MLP's parts (products,
+  epilogue, head, the ring's waits) at the :data:`LARGE_CELLS`, the games
+  whose launches keep arrays in the device workspace: 2x5f and 3x3f CFR,
+  2x6f and 3x4f CFR and FP at the lane block the wrapper chooses (1),
+  and 3x3f and 2x6f CFR at lane block 2, with the fresh 256x2 nets of
+  ``chip_smoke.py``'s ``large-games`` phase (:func:`large_net`).  Each variant builds only
+  the instantiations these launches run (``build.build(units=)``), and
+  each launch is warmed up by one of 4 iterations, then timed once a
+  round.  Not in the default ``--parts`` (some 8 minutes a round).
 """
 
 from __future__ import annotations
@@ -134,13 +143,51 @@ RING16_CELLS = {
 }
 
 
-def build_variants(variants: dict) -> dict:
+# The large games' cells: name: (game (dice, faces), CFR, lane block;
+# None: the chosen one), bf16 with a net.
+LARGE_CELLS = {
+    "2x5 cfr": ((2, 5), True, None),
+    "3x3 cfr": ((3, 3), True, None),
+    "3x3 cfr lb2": ((3, 3), True, 2),
+    "2x6 cfr": ((2, 6), True, None),
+    "2x6 cfr lb2": ((2, 6), True, 2),
+    "2x6 fp": ((2, 6), False, None),
+    "3x4 cfr": ((3, 4), True, None),
+    "3x4 fp": ((3, 4), False, None),
+}
+LARGE_VARIANTS = {"whole": 0, **BODY_VARIANTS,
+                  **{k: v for k, v in VARIANTS.items() if k != "whole"},
+                  "no ring waits": CUTS["RING16_WAIT"]}
+# The seeds of the large games' fresh nets (chip_smoke.py's large-games
+# phase; chip_studies.py same-bits --large and plain-ms --large).
+LARGE_NET_SEEDS = {(2, 5): 300, (3, 3): 301, (2, 6): 302, (3, 4): 340,
+                   (1, 16): 341}
+
+
+def large_net(game: LiarsDice, seed: int | None = None, width: int = 256,
+              layers: int = 2) -> CFVNet:
+    """A fresh net of ``game``: CFVNet with LayerNorm from ``seed`` (by
+    default the game's in :data:`LARGE_NET_SEEDS`), its LayerNorm scale
+    drawn from [0.5, 1.5) and bias from [-0.5, 0.5), on the CPU."""
+    if seed is None:
+        seed = LARGE_NET_SEEDS[game.num_dice, game.num_faces]
+    g = torch.Generator().manual_seed(seed)
+    net = CFVNet(game, width, layers, True, generator=g)
+    with torch.no_grad():
+        for _, ln in net.hidden_layers():
+            ln.weight.copy_(0.5 + torch.rand(width, generator=g))
+            ln.bias.copy_(torch.rand(width, generator=g) - 0.5)
+    return net
+
+
+def build_variants(variants: dict, units=None) -> dict:
     """``{name: library}`` for ``{name: mask}``: the kernel with the parts
-    of each mask taken out, compiled side by side (one ``nvcc`` each)."""
+    of each mask taken out, compiled side by side (one ``nvcc`` each);
+    ``units``: only those instantiations (``build.build``)."""
     with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
         paths = list(pool.map(
             lambda mask: build.build(
-                "grid2_cfr", (f"BREAKDOWN={mask}",) if mask else ()),
+                "grid2_cfr", (f"BREAKDOWN={mask}",) if mask else (), units),
             variants.values()))
     return {name: ctypes.CDLL(str(path))
             for name, path in zip(variants, paths)}
@@ -160,9 +207,11 @@ def using(lib):
             build._loaded["grid2_cfr"] = before
 
 
-def time_launch(args, reps: int = 3, **knobs) -> float:
-    """ms per launch of ``grid2p.solve(*args, **knobs)``, after a warm-up."""
-    grid2p.solve(*args, **knobs)
+def time_launch(args, reps: int = 3, warm: bool = True, **knobs) -> float:
+    """ms per launch of ``grid2p.solve(*args, **knobs)``, after a warm-up
+    launch (``warm``; else the caller's)."""
+    if warm:
+        grid2p.solve(*args, **knobs)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -335,6 +384,37 @@ def ring16_part(rounds: int, batch: int, dev) -> None:
                                       "ring": ring, "ms": ms}), flush=True)
 
 
+def large_part(rounds: int, batch: int, dev) -> None:
+    cells, units = {}, set()
+    for cell, ((nd, nf), use_cfr, lane_block) in LARGE_CELLS.items():
+        game = LiarsDice(nd, nf)
+        net = large_net(game).to(dev)
+        args = solve_args(game, random_states(game, batch, dev), use_cfr,
+                          net)
+        if lane_block is None:
+            lane_block = grid2p.choose_lane_block(*args[:2], net,
+                                                  torch.bfloat16, batch)
+        plan = grid2p.kernel_plan(*args[:2], net, torch.bfloat16, batch,
+                                  lane_block)
+        units.add(grid2p.kernel_unit(args[1], plan, True))
+        warm = (game, args[1].replace(num_iters=4), *args[2:5],
+                torch.clamp(args[5], max=4), *args[6:])
+        cells[cell] = (args, warm, lane_block, plan.layout)
+    libs = build_variants(LARGE_VARIANTS, tuple(sorted(units)))
+    for rnd in range(rounds):
+        for name, lib in libs.items():
+            with using(lib):
+                for cell, (args, warm, lane_block, layout) in cells.items():
+                    grid2p.solve(*warm, lane_block=lane_block)
+                    ms = time_launch(args, reps=1, warm=False,
+                                     lane_block=lane_block)
+                    print(json.dumps({"round": rnd, "part": "large",
+                                      "variant": name, "cell": cell,
+                                      "lane_block": lane_block,
+                                      "layout": layout, "ms": ms}),
+                          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
@@ -357,7 +437,7 @@ def main(argv=None) -> int:
 
 
 PARTS = {"mlp": mlp_part, "mlp32": mlp32_part, "body": body_part,
-         "ring16": ring16_part}
+         "ring16": ring16_part, "large": large_part}
 
 
 if __name__ == "__main__":

@@ -96,6 +96,12 @@ RING_STAGES = 2
 # width 256), RING16_STAGES of them per group of warps.
 RING16_K = 32
 RING16_STAGES = 4
+# The workspace instantiations' reach phase at rows wider than a warp:
+# items a warp takes at a time; and the words of the state their body
+# phases read (the kernel's WsBody), in shared memory where the one-group
+# launches call those phases.
+REACH_NB = 4
+WS_BODY_WORDS = 60
 
 
 class Grid2Outputs(NamedTuple):
@@ -447,7 +453,12 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
     whose arrays live in the device workspace and not in shared memory;
     with one, also ``workspace``, the bytes of a block's part of it (not in
     ``total``; the payoff table of the workspace's levels is the wrapper's
-    own tensor, in no part of it)."""
+    own tensor, in no part of it; the level-1 arrays keep there only the
+    :func:`level1_cells` that can be non-zero), and ``scratch``, each
+    warp's rows of :data:`REACH_NB` / ``groups`` reach items (three rows of ``H``
+    values, an odd number of words apart; the f32 MLP's activation rows
+    hold them) and, in one group of warps, the :data:`WS_BODY_WORDS` of
+    the state the body's phases read, in shared memory."""
     A, H = game.num_actions, game.num_hands
     P = len(pseudo_leaf_pairs(game))
     words = lambda *ns: sum(_ceil(n, 4) for n in ns)
@@ -474,15 +485,19 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
     fp = 0 if use_cfr else 1
     # Each array of the lanes' state with the level from which it lives in
     # the workspace (0: never), in make_layout()'s order.
+    cells1 = level1_cells(A) * H if workspace >= WS_LEVEL1 else A * H * A
+    # The workspace's launches compute the root bid's win table [H, H]
+    # where they need it and keep none.
+    mwin = 0 if workspace else LB * H * H
     state = [(0, LB), (0, LB), (0, LB), (0, LB * A), (0, LB * 2 * H),
-             (WS_BODY, LB * H * H), (WS_BODY, last * LB * H * A),
-             (WS_BODY, LB * H * A), (WS_LEVEL1, last * LB * A * H * A),
-             (WS_LEVEL1, LB * A * H * A), (0, LB * 2 * H), (0, LB * H),
+             (WS_BODY, mwin), (WS_BODY, last * LB * H * A),
+             (WS_BODY, LB * H * A), (WS_LEVEL1, last * LB * cells1),
+             (WS_LEVEL1, LB * cells1), (0, LB * 2 * H), (0, LB * H),
              (WS_BODY, LB * A * H), (WS_BODY, LB * A * H), (0, LB * H),
              (WS_ROWS, P * LB * H), (WS_ROWS, P * LB * H), (WS_ROWS, P * LB)]
     if not net:  # leaf values and level-1 values in rows of their own
         state += [(WS_ROWS, P * LB * H), (WS_ROWS, LB * A * H)]
-    state += [(WS_BODY, fp * LB * H * A), (WS_LEVEL1, fp * LB * A * H * A)]
+    state += [(WS_BODY, fp * LB * H * A), (WS_LEVEL1, fp * LB * cells1)]
     moved = lambda lvl: 0 < lvl <= workspace
     lanes = words(*(n for lvl, n in state if not moved(lvl)))
     ws_words = words(*(n for lvl, n in state if moved(lvl)))
@@ -497,10 +512,22 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
         ring_words = 0
     parts = dict(mlp=mlp, tables=tables, lanes=groups * lanes,
                  rows=groups * rows, ring=ring_words)
+    if workspace:  # the f32 MLP's rows hold the rows; one group of warps
+        # keeps a WsBody (its launches call the phases)
+        parts["scratch"] = (0 if fma else groups * words(
+            WARPS // groups * 3 * (REACH_NB // groups) * (H | 1))) \
+            + (WS_BODY_WORDS if groups == 1 else 0)
     parts["total"] = sum(parts.values())
     if workspace:
         parts["workspace"] = groups * ws_words
     return {k: 4 * v for k, v in parts.items()}
+
+
+def level1_cells(num_actions: int) -> int:
+    """Cells ``(a1, a2)`` of a level-1 array that can hold a non-zero
+    value, ``a2 > a1`` (the liar call's row has none): all the device
+    workspace keeps of each lane's ``[A, H, A]``, ``H`` values a cell."""
+    return num_actions * (num_actions - 1) // 2
 
 
 def max_workspace(n_layers: int, bf16: bool) -> int:
@@ -564,6 +591,61 @@ def deal_wide(n: int) -> list[tuple[int, int, int]]:
     if not 1 <= n <= MAX_ROW:
         raise ValueError(f"a warp takes rows of 1-{MAX_ROW} values, not {n}")
     return [(v, v % 32, v // 32) for v in range(n)]
+
+
+def level1_cell(num_actions: int, a1: int, a2: int) -> int:
+    """Where the device workspace keeps cell ``(a1, a2)``, ``a2 > a1``, of
+    a lane's level-1 array: cells row by row, ``a2`` fastest, each ``H``
+    values (the kernel's ``row1``), ``0 .. level1_cells(A) - 1``."""
+    if not 0 <= a1 < a2 < num_actions:
+        raise ValueError(f"the workspace keeps the cells a2 > a1 only, not "
+                         f"({a1}, {a2})")
+    return a1 * (num_actions - 1) - a1 * (a1 + 1) // 2 - 1 + a2
+
+
+def deal_reach(n_items: int, hands: int, groups: int = 1) -> list:
+    """How the workspace instantiations' reach phase deals a group's
+    ``n_items`` items of ``hands`` hands to its warps (:data:`WARPS` /
+    ``groups``) at rows wider than a warp: per warp, its batches of ``nb =
+    REACH_NB / groups`` items (``e0 = nb (warp + warps n)``), each
+    ``(items, values, sums)``: ``values`` the ``(item, hand, lane,
+    register)`` each lane computes (lane ``l`` hands ``l`` and ``l +
+    32``), ``sums`` the ``(lane, item, row, hands)`` of each summing lane
+    (lane ``3 b + w`` row ``w`` of the batch's item ``b``, over ``hands``
+    in the order it adds them).  Rows of at most :data:`NARROW_ROW` hands
+    take the shared-memory layout's loops."""
+    if not NARROW_ROW < hands <= MAX_ROW:
+        raise ValueError(f"the batches take rows of {NARROW_ROW + 1}-"
+                         f"{MAX_ROW} hands, not {hands}")
+    warps, nb = WARPS // groups, REACH_NB // groups
+    out = []
+    for w in range(warps):
+        batches = []
+        for e0 in range(w * nb, n_items, warps * nb):
+            items = [e for e in range(e0, e0 + nb) if e < n_items]
+            values = [(e, lane + 32 * j, lane, j) for e in items
+                      for j in range(2) for lane in range(32)
+                      if lane + 32 * j < hands]
+            sums = [(lane, e0 + lane // 3, lane % 3, list(range(hands)))
+                    for lane in range(3 * nb) if e0 + lane // 3 < n_items]
+            batches.append((items, values, sums))
+        out.append(batches)
+    return out
+
+
+def deal_terminal(num_actions: int, hands: int, lanes: int,
+                  threads: int = 32 * WARPS) -> list:
+    """How the workspace instantiations take the terminal values, as the
+    shared-memory loop does: item ``i`` of ``(A + 1) lanes hands`` (rows
+    outermost: the challenge rows ``a1 < A``, then the root bid's row
+    ``A``) to thread ``i % threads``; per thread, ``(row, lane, h, opponent
+    hands in the order they are summed)`` of each value it computes."""
+    out = [[] for _ in range(threads)]
+    for i in range((num_actions + 1) * lanes * hands):
+        row, r = divmod(i, lanes * hands)
+        lane, h = divmod(r, hands)
+        out[i % threads].append((row, lane, h, list(range(hands))))
+    return out
 
 
 def effective_interleave(params: SubgameSolvingParams, has_net: bool,
@@ -845,13 +927,16 @@ def choose_lane_block(game: LiarsDice, params: SubgameSolvingParams,
                       ablate: str = "", mlp_chunks: int | None = None) -> int:
     """The largest of :data:`LANE_BLOCKS` that divides ``batch`` and whose
     layout fits a block's shared memory with the weights resident; only
-    where no block fits so, the largest that fits with the bf16 ring; only
-    where none fits either, the workspace's shallowest level at which a
-    block fits, resident weights before the ring
-    (:func:`kernel_plan`).  With ``interleave=2`` where it applies, only
-    even blocks.  Chosen before anything is built or launched; raises
-    ``kernel_plan``'s ``ValueError`` for the smallest candidate when none
-    fits."""
+    where no block fits so, the largest that fits with the bf16 ring.
+    Where none fits either (:func:`needs_workspace`), the device
+    workspace's shallowest level at which a block fits (resident weights
+    before the ring), and there the smallest block: its blocks in flight
+    keep the least of the workspace in the L2 cache, and the measured
+    launches there read as fast or faster than at larger blocks (PERF.md).
+    With ``interleave=2`` where it applies, only even blocks.  A pure
+    function of the game, the net and the batch, chosen before anything
+    is built or launched; raises ``kernel_plan``'s ``ValueError`` for the
+    smallest candidate when none fits."""
     groups = effective_interleave(params, net is not None, interleave, None)
     blocks = [lb for lb in LANE_BLOCKS
               if batch % lb == 0 and lb % groups == 0]
@@ -859,6 +944,8 @@ def choose_lane_block(game: LiarsDice, params: SubgameSolvingParams,
         raise ValueError(f"no lane block of {LANE_BLOCKS} divides batch "
                          f"{batch}" + (" into even blocks" if groups == 2
                                        else ""))
+    if needs_workspace(game, params, net, net_compute_dtype, interleave):
+        blocks = blocks[::-1]
     layouts = _layouts(game, params, net, net_compute_dtype, interleave)
     for n, layout in enumerate(layouts):
         for lb in blocks:
@@ -867,7 +954,7 @@ def choose_lane_block(game: LiarsDice, params: SubgameSolvingParams,
                       mlp_chunks, interleave, gelu, ablate, [layout])
                 return lb
             except ValueError:
-                if n == len(layouts) - 1 and lb == blocks[-1]:
+                if n == len(layouts) - 1 and lb == min(blocks):
                     raise  # not even the smallest fits
 
 
@@ -1016,6 +1103,22 @@ def kernel_name(params: SubgameSolvingParams, has_net: bool = True,
 
 
 KERNEL_NAMES = ("grid2_cfr", "grid2_fp", "grid2_cfr_il2")
+
+
+def kernel_unit(params: SubgameSolvingParams, plan: KernelPlan,
+                has_net: bool) -> int:
+    """The unit of ``kernels/grid2_cfr.cu`` (``-DGRID2_UNIT``) that holds
+    the instantiation a launch of ``plan`` runs, as the C interface picks
+    it: ``3 kind + kernel``, kind 0 f32 (also without a net), 1 bf16, 2
+    bf16 on the ring, 3-5 the same with the workspace; kernel 0 CFR, 1 FP,
+    2 the two-group CFR."""
+    mma = plan.bf16 and has_net
+    kind = (3 if plan.workspace else 0) + ((2 if plan.ring else 1) if mma
+                                           else 0)
+    kernel = 2 if plan.groups == 2 else 0 if params.use_cfr else 1
+    return 3 * kind + kernel
+
+
 solve.launches = 0
 solve.launches_by_kernel = dict.fromkeys(KERNEL_NAMES, 0)
 solve.last_lane_block = None

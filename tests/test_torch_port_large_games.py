@@ -234,18 +234,18 @@ def test_games_that_launched_keep_their_plan(dice, faces):
 
 # The new games, 256x2 net, B=1024: (lane block, layout) for bf16 and f32.
 TAKEN = {(2, 5): ((1, "ring+workspace2"), (1, "resident+workspace2")),
-         (3, 3): ((2, "ring+workspace2"), (1, "resident+workspace2")),
-         (2, 6): ((2, "ring+workspace3"), (1, "resident+workspace3")),
-         (3, 4): ((8, "ring+workspace4"), (8, "resident+workspace5")),
-         (1, 16): ((1, "ring+workspace2"), (4, "resident+workspace3"))}
+         (3, 3): ((1, "ring+workspace2"), (1, "resident+workspace2")),
+         (2, 6): ((1, "ring+workspace3"), (1, "resident+workspace3")),
+         (3, 4): ((1, "ring+workspace4"), (1, "resident+workspace5")),
+         (1, 16): ((1, "ring+workspace2"), (1, "resident+workspace3"))}
 
 
 @pytest.mark.parametrize("dice,faces", list(TAKEN))
 def test_new_games_take_the_workspace(dice, faces):
     """Each takes the workspace's shallowest level at which a block fits
     (resident weights before the ring), within the shared-memory limit,
-    with the workspace bytes ``smem_layout`` reports; the level below
-    fits no lane block."""
+    with the workspace bytes ``smem_layout`` reports, at the smallest
+    lane block; the level below fits no lane block."""
     game = LiarsDice(dice, faces)
     net = _net(game)
     for use_cfr in (True, False):
@@ -279,13 +279,24 @@ def test_workspace_levels_move_state_out_of_shared_memory():
     P = len(grid2p.pseudo_leaf_pairs(game))
     lay = [grid2p.smem_layout(game, 1, True, 256, 2, True, ring=True,
                               workspace=level) for level in range(5)]
-    assert "workspace" not in lay[0]
-    moved = [0, 4 * A * H * H, 2 * 4 * A * H * A,
-             4 * (2 * P * H + P), 4 * (H * H + 2 * H * A + 2 * A * H)]
+    assert "workspace" not in lay[0] and "scratch" not in lay[0]
+    # Every level has the warps' reach rows (REACH_NB items of three rows
+    # of H values, an odd number of words apart) and the group's WsBody in
+    # shared memory; the root bid's win table [H, H] is computed where it
+    # is needed at every level, and kept nowhere.
+    scratch = 4 * (grid2p.WARPS * 3 * grid2p.REACH_NB * (H | 1)
+                   + grid2p.WS_BODY_WORDS)
+    assert all(lay[level]["scratch"] == scratch for level in range(1, 5))
+    moved = [0, 4 * A * H * H + 4 * H * H - scratch, 2 * 4 * A * H * A,
+             4 * (2 * P * H + P), 4 * (2 * H * A + 2 * A * H)]
+    # The level-1 arrays keep only their cells a2 > a1 in the workspace.
+    stored = {**dict(enumerate(moved)),
+              1: 0, 2: 2 * 4 * grid2p.level1_cells(A) * H}
+    assert grid2p.level1_cells(A) == 300
     for level in range(1, 5):
         assert lay[level - 1]["total"] - lay[level]["total"] == moved[level]
         assert lay[level]["workspace"] - lay[level - 1].get(
-            "workspace", 0) == (moved[level] if level > 1 else 0)
+            "workspace", 0) == stored[level]
     # f32: level 5 streams the first layer through the ring.
     f32 = [grid2p.smem_layout(game, 1, True, 256, 2, False, workspace=level)
            for level in (4, 5)]
@@ -441,3 +452,99 @@ def test_frontier_solver_records_no_layout_on_the_cpu():
     fs = Grid2FrontierSolver(game, _params(True), torch.float32, None,
                              engine="kernel", net=_net(game), device="cpu")
     assert (fs.lane_block_used, fs.layout_used) == (None, None)
+
+
+# The workspace games' plans: every game, CFR and FP, bf16 and f32, 256x2
+# net, B=1024.
+WS_GAMES = [(2, 5), (3, 3), (2, 6), (3, 4), (1, 16)]
+
+
+@pytest.mark.parametrize("dice,faces", WS_GAMES)
+@pytest.mark.parametrize("use_cfr", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_workspace_plans_take_the_smallest_block(dice, faces, use_cfr,
+                                                 dtype):
+    """``choose_lane_block`` at a workspace game, worked out again from
+    ``smem_layout``: the first layout (levels shallowest first, resident
+    weights before the ring) at which the smallest lane block fits, and
+    that block (2 for the two-group kernel, where it fits at all)."""
+    game = LiarsDice(dice, faces)
+    net, sub = _net(game), _params(use_cfr)
+    bf16 = dtype == torch.bfloat16
+    groups = [1, 2] if use_cfr and bf16 else [1]
+    for il in groups:
+        want = next(((il, ring, level) for ring, level
+                     in grid2p._layouts(game, sub, net, dtype, il)
+                     if grid2p.smem_layout(
+                         game, il, use_cfr, 256, 2, bf16, il, False, ring,
+                         level)["total"] <= grid2p.SMEM_LIMIT), None)
+        if want is None:  # the two-group kernel at 3x4f: no block fits
+            assert (dice, faces, il) == (3, 4, 2)
+            with pytest.raises(ValueError, match="use a smaller lane_block"):
+                grid2p.choose_lane_block(game, sub, net, dtype, 1024,
+                                         interleave=il)
+            continue
+        assert want[2] >= 1  # no block of these games fits without
+        lb = grid2p.choose_lane_block(game, sub, net, dtype, 1024,
+                                      interleave=il)
+        plan = grid2p.kernel_plan(game, sub, net, dtype, 1024, lb,
+                                  interleave=il)
+        assert (lb, plan.ring, plan.workspace) == want
+        assert plan.groups == il
+
+
+@pytest.mark.parametrize("num_actions", [9, 13, 19, 25, 33, 64])
+def test_level1_cells_are_kept_once_row_by_row(num_actions):
+    """``level1_cell`` (the kernel's ``row1`` in the workspace): the cells
+    a2 > a1 take 0 .. level1_cells(A) - 1 once each, row by row, a2
+    fastest; a cell a2 <= a1 has no place."""
+    A = num_actions
+    cells = [grid2p.level1_cell(A, a1, a2) for a1 in range(A)
+             for a2 in range(a1 + 1, A)]
+    assert cells == list(range(grid2p.level1_cells(A)))
+    for a1, a2 in ((0, 0), (3, 2), (A - 1, A - 1)):
+        with pytest.raises(ValueError, match="a2 > a1"):
+            grid2p.level1_cell(A, a1, a2)
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("items,hands", [(1, 33), (37, 36), (158, 36),
+                                         (301, 36), (301, 64), (2408, 64),
+                                         (211, 64)])
+def test_reach_items_are_dealt_once_with_sums_in_order(items, hands, groups):
+    """``deal_reach`` (rows wider than a warp): every (item, hand) value is
+    computed once, by lane hand % 32; each batch's items (REACH_NB /
+    groups) have their three sums (x0, x1, mass) taken by lanes 3 b + w
+    alone, over the item's hands in index order; narrower rows take the
+    other loops."""
+    seen = []
+    summed = {}
+    dealt = grid2p.deal_reach(items, hands, groups)
+    assert len(dealt) == grid2p.WARPS // groups
+    for batches in dealt:
+        for batch_items, values, sums in batches:
+            assert len(batch_items) <= grid2p.REACH_NB // groups
+            seen += [(e, h) for e, h, lane, j in values]
+            assert all(h == lane + 32 * j for _, h, lane, j in values)
+            for lane, e, row, order in sums:
+                assert lane == 3 * batch_items.index(e) + row
+                assert order == list(range(hands))
+                summed[e, row] = summed.get((e, row), 0) + 1
+    assert sorted(seen) == [(e, h) for e in range(items)
+                            for h in range(hands)]
+    assert summed == {(e, w): 1 for e in range(items) for w in range(3)}
+    with pytest.raises(ValueError, match="33-64 hands, not 32"):
+        grid2p.deal_reach(items, 32)
+
+
+@pytest.mark.parametrize("A,H,lanes", [(9, 4, 8), (25, 36, 2), (25, 64, 1),
+                                       (25, 64, 8), (13, 9, 16)])
+def test_terminal_values_are_dealt_once_in_order(A, H, lanes):
+    """``deal_terminal``: every challenge value (a1, lane, hand) and every
+    lane's root-bid value (row A, lane, hand) is computed once, by one
+    thread, its sum over the opponent's hands in index order."""
+    got = [v for thread in grid2p.deal_terminal(A, H, lanes) for v in thread]
+    assert sorted((row, lane, h) for row, lane, h, _ in got) == [
+        (row, lane, h) for row in range(A + 1) for lane in range(lanes)
+        for h in range(H)]
+    assert all(order == list(range(H)) for *_, order in got)

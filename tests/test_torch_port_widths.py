@@ -24,6 +24,7 @@ phase ``widths``); here, on the CPU:
 
 import importlib.util
 
+import itertools
 import pathlib
 import re
 
@@ -331,11 +332,47 @@ def test_python_constants_are_the_kernels():
     src = KERNEL.read_text()
     define = lambda name: int(re.search(rf"#define {name} (\d+)", src)[1])
     for name in ("RING_K", "RING_STAGES", "RING16_K", "RING16_STAGES",
-                 "MMA_ROWS", "WARP_ROWS"):
+                 "MMA_ROWS", "WARP_ROWS", "REACH_NB"):
         assert define(name) == getattr(grid2p, name), name
     assert define("NHP") == grid2p.KERNEL_WIDTH == 256
     cuts = dict(re.findall(r"#define CUT_(\w+) (\d+)", src))
     assert {k: int(v) for k, v in cuts.items()} == mlp_breakdown.CUTS
+
+
+@pytest.mark.parametrize("use_cfr", [True, False])
+def test_kernel_unit_is_the_c_interfaces_choice(use_cfr):
+    """``grid2p.kernel_unit`` (which unit a breakdown builds) against the C
+    interface's choice of unit and each unit's instantiation, read from
+    the source: every combination of workspace, operands, ring and
+    groups."""
+    src = KERNEL.read_text()
+    assert ("const int kind = (p.ws_level > 0 ? 3 : 0) + (mma ? (p.ring ? 2 "
+            ": 1) : 0);") in src
+    assert "const int kernel = p.groups == 2 ? 2 : p.fp ? 1 : 0;" in src
+    assert "return unit_launches[3 * kind + kernel](p, smem, s);" in src
+    assert "constexpr int kind = U / 3, kernel = U % 3;" in src
+    assert ("return launch<WT, kernel == 1, kernel == 2 ? 2 : 1, kind % 3 == "
+            "2,\n                  (kind >= 3)>(p, smem, s);") in src
+    params = SubgameSolvingParams(num_iters=4, max_depth=2, use_cfr=use_cfr,
+                                  linear_update=True)
+    seen = set()
+    for ws, bf16, net, ring, groups in itertools.product(
+            (0, 3), (False, True), (False, True), (False, True), (1, 2)):
+        if groups == 2 and not (use_cfr and net):
+            continue  # the two-group kernel is CFR with a net only
+        plan = grid2p.KernelPlan("exact", groups, 1, bf16, 0, ring, ws)
+        mma = bf16 and net
+        kind = (3 if ws > 0 else 0) + ((2 if ring else 1) if mma else 0)
+        kernel = 2 if groups == 2 else 0 if use_cfr else 1
+        unit = grid2p.kernel_unit(params, plan, net)
+        assert unit == 3 * kind + kernel
+        # The unit's instantiation: operands, FP, groups, ring, workspace.
+        assert (unit // 3 % 3 != 0, unit % 3 == 1, unit % 3 == 2,
+                unit // 3 % 3 == 2, unit // 3 >= 3) == (
+            mma, not use_cfr, groups == 2, mma and ring, ws > 0)
+        seen.add(unit)
+    assert seen == ({u for u in range(18) if u % 3 != 1} if use_cfr
+                    else {u for u in range(18) if u % 3 == 1})
 
 
 def _chip_smoke():
