@@ -210,6 +210,22 @@ MUTANTS = {
         "a1 * (a1 + 1) / 2 - 1)",
         "a1 * (a1 + 1) / 2 + 0)",
         LARGE_PHASES),
+    # The wide bf16 MLP (nets of 257-512 at the padded width 512, both
+    # warpgroups on one tile, each half the columns): LayerNorm takes a
+    # row's statistics from its own warpgroup's half of the columns only
+    # (twice that half's sums); the pair's barrier after the layer's
+    # products is dropped, so that a warpgroup may overwrite A (and read
+    # the other half's LayerNorm sums) before the other has read it.  The
+    # widths phase's nets of 300, 384 and 512 run it.
+    "wide-ln-half": (
+        "const float *half0 = stats, *half1 = stats + 2 * MMA_ROWS;",
+        "const float *half0 = stats + 2 * MMA_ROWS * g, *half1 = half0;",
+        WIDTH_PHASES),
+    "wide-a-overwrite": (
+        "        pair_sync();  // A free: the layer's products have read it "
+        "all\n",
+        "",
+        WIDTH_PHASES),
 }
 
 

@@ -11,9 +11,11 @@ an H100, ``sm_90a``).  It
    ``grid2_cfr``, the fictitious-play kernel ``grid2_fp`` and the
    two-group CFR kernel ``grid2_cfr_il2``, each in f32, with bf16
    operands and with bf16 operands on the bf16 ring, each with and
-   without the device workspace: eighteen instantiations, every net at
-   the padded width 256) with ``nvcc``, one unit an instantiation, side
-   by side; prints
+   without the device workspace, every net of width 1-256 at the padded
+   width 256; and the wide units, ``grid2_cfr`` and ``grid2_fp`` in f32
+   and in bf16 on the ring at the padded width 512 for nets of 257-512:
+   twenty-two instantiations) with ``nvcc``, one unit an instantiation,
+   side by side; prints
    each instantiation's registers, spills
    and shared memory at lane block 8, and the tensor-core instructions
    (``HGMMA``, ``HMMA``) in its machine code: ``HGMMA`` in every bf16
@@ -116,20 +118,29 @@ an H100, ``sm_90a``).  It
 17. ``widths``: nets of other widths and depths (WIDTH_CASES: widths 32,
    100, 128 and 256, 1 to 12 hidden layers, bf16 and f32, CFR and FP, with
    and without LayerNorm, one with ``interleave=2``; bf16 nets of 3 hidden
-   layers and more on the bf16 ring), each from a seed, against the plain
+   layers and more on the bf16 ring; widths 300, 384 and 512, 1 to 3
+   hidden layers, on the wide units; then WIDE_GAMES, 512x2 nets at 1x5f,
+   1x6f and 2x3f with their plans), each from a seed, against the plain
    version on the card: over 4 iterations to the absolute limits (not bf16
    CFR deeper than 3 hidden layers), over 64 by the statistics against a
-   control (CFR: plain(card) vs plain(cpu), chaotic lanes counted; FP:
-   the plain version with the MLP's sums in another correct order, bf16
-   the tensor cores' chained k steps, f32 exact); the
+   control (CFR: plain(card) vs plain(cpu), chaotic lanes counted, but
+   bf16 at WIDE_GAMES as FP; FP: the plain version with the MLP's sums in
+   another correct order, bf16 the tensor cores' chained k steps, f32
+   exact); the
    ring against the resident weights bit for bit on nets of 3 to 12
-   hidden layers (RING_BITS); then the new paths' timed launches (a 256x3
-   net on the ring at 1x4f, narrow nets, 2x3f on the ring at lane block 4
-   beside the resident weights at 2);
+   hidden layers (RING_BITS); the repo's two trained 256x2 nets padded to
+   512 through the wide units (``grid2p._force_width``) held to the
+   256-wide units by a 16-repeat evaluation with phase 7's limits
+   (WIDE_TRAINED); then the new paths' timed launches (a 256x3 net on the
+   ring at 1x4f, narrow nets, 2x3f on the ring at lane block 4 beside the
+   resident weights at 2, and 512x2 and 384x2 on the wide units);
 18. ``run-entry-widths``: the run entry with the round-5 overrides and
    ``model.kwargs.n_layers=3`` (generation through the bf16 ring, the
    exploit evaluation at epoch 0 through the f32 kernel, both counted),
-   and the README's quick run at ``model.kwargs.n_hidden=32`` on the card;
+   with ``model.kwargs.n_hidden=512`` (burn-in and one epoch: generation
+   through the wide bf16 unit, the exploit evaluation at epoch 0 through
+   the wide f32 unit, both counted, and the checkpoint), and the README's
+   quick run at ``model.kwargs.n_hidden=32`` on the card;
 19. ``large-games``: the games of up to 64 hands and 64 actions with
    fresh 256x2 nets from a seed: 2x5f, 3x3f and 2x6f (CFR and FP, bf16
    and f32, on the device workspace) on 256 lanes against the plain
@@ -334,16 +345,19 @@ MOST_LANES_TOL = {"f32": 1e-5, "bf16": 1e-4}
 PRECEDENCE_FACTOR = 4
 KNOB_CHUNKS = {8: (2, 4, 7, 28), 2: (1, 2), 1: (28,)}
 
-# The instantiations of grid2_kernel<WT, FP, NG, RING16> by their mangled
-# names' template arguments (FP, NG), and the MLP's operands WT with the
-# bf16 ring or not (the f32 ones also run without a net): nine.
+# The instantiations of grid2_kernel<WT, FP, NG, RING16, WS> by their
+# mangled names' template arguments (FP, NG), the MLP's operands WT with
+# the bf16 ring or not (the f32 ones also run without a net), the
+# workspace, and the wide units' namespace w512 (padded width 512):
+# twenty-two.
 INSTANTIATION = re.compile(
-    r"grid2_kernelI(13__nv_bfloat16|f)Lb([01])ELi([12])ELb([01])ELb([01])E")
+    r"(4w512)?12grid2_kernelI(13__nv_bfloat16|f)Lb([01])ELi([12])ELb([01])"
+    r"ELb([01])E")
 KERNEL_OF = {("0", "1"): "grid2_cfr", ("1", "1"): "grid2_fp",
              ("0", "2"): "grid2_cfr_il2"}
 OPERANDS_OF = {("13__nv_bfloat16", "0"): "bf16",
                ("13__nv_bfloat16", "1"): "bf16 ring", ("f", "0"): "f32"}
-INSTANTIATIONS = 18
+INSTANTIATIONS = 22
 
 PHASES = ("cfr-checks", "fp-checks", "cfr-selfplay", "cfr-shapes", "eval",
           "exploit-check", "fp-selfplay", "knob-checks", "bench", "run-entry",
@@ -357,7 +371,7 @@ PHASES = ("cfr-checks", "fp-checks", "cfr-selfplay", "cfr-shapes", "eval",
 # padded width 256, the narrower ones with padding columns; bf16 nets of
 # 3 hidden layers or more stream them through the bf16 ring, and the
 # interleaved case runs the ring in both groups of grid2_cfr_il2.  bf16
-# CFR deeper than 3 hidden layers (the last two cases) is held over
+# CFR deeper than 3 hidden layers (the two of 8 layers) is held over
 # LONG_ITERS only: two correct plain versions (f32 sums and exact sums)
 # already differ by more than TOL_BF16 within CHECK_ITERS iterations on
 # such nets (`chip_studies.py sum-order --fresh`, PERF.md).  A bf16 CFR
@@ -376,7 +390,37 @@ WIDTH_CASES = (
     (128, 1, "cfr", "f32", True, 1), (128, 3, "fp", "f32", True, 1),
     (256, 3, "cfr", "f32", True, 1), (256, 8, "fp", "f32", True, 1),
     (256, 12, "cfr", "f32", True, 1),
-    (128, 8, "cfr", "bf16", True, 1), (256, 8, "cfr", "bf16", True, 1))
+    (128, 8, "cfr", "bf16", True, 1), (256, 8, "cfr", "bf16", True, 1),
+    # The wide units (padded width 512): bf16 on the ring (a net of one
+    # hidden layer has none to stream), f32 with 4 rows a warp.
+    (300, 1, "cfr", "bf16", True, 1), (384, 3, "cfr", "bf16", True, 1),
+    (512, 2, "cfr", "bf16", True, 1), (512, 2, "fp", "bf16", True, 1),
+    (384, 2, "fp", "bf16", False, 1), (300, 3, "fp", "bf16", True, 1),
+    (512, 3, "cfr", "f32", True, 1), (384, 1, "cfr", "f32", False, 1),
+    (300, 2, "fp", "f32", False, 1), (512, 2, "fp", "f32", True, 1))
+# The larger default games on the wide units: a 512x2 net from a seed at
+# each, with its plan, held as WIDTH_CASES are, but bf16 CFR over
+# LONG_ITERS as the large-games phase holds bf16: against the plain
+# version with the tensor cores' chained sums on the same lanes.  A CPU
+# control (f32 sums) does not see how far the MLP's sums move bf16 CFR
+# over 64 iterations there: two correct plain versions (f32 sums against
+# exact and against the tensor cores' chained sums) part by rvm_mean
+# 1.38e-05 / 1.40e-05 at 1x6f, where the CPU control reads 8.0e-06, and
+# at 2x3f by 5.46e-03 / 5.67e-03 on lane 133, past the 4.26e-03 at which
+# that control counts a lane chaotic (`chip_studies.py sum-order --fresh
+# 512x2 --net-seed 261 / 262 --seed 271 / 272 --iters 64`; PERF.md §6, PR
+# 15).  f32 CFR runs at 1x5f only (a control on the CPU a game; 1x4f holds
+# it at 384 and 512), every other mode at all three.
+WIDE_GAMES = ((1, 5), (1, 6), (2, 3))
+WIDE_GAME_MODES = {
+    (1, 5): (("cfr", "bf16"), ("cfr", "f32"), ("fp", "bf16"), ("fp", "f32")),
+    (1, 6): (("cfr", "bf16"), ("fp", "bf16"), ("fp", "f32")),
+    (2, 3): (("cfr", "bf16"), ("fp", "bf16"), ("fp", "f32"))}
+# The repo's trained 256x2 1x4f nets (phase 6's) padded to 512 and run on
+# the wide units (grid2p._force_width), held by a WIDE_TRAINED_REPEATS-
+# repeat evaluation (phase 7's, bf16) to the 256-wide units' with phase
+# 7's limits (EXPLOIT_RTOL); the bits of both are compared and printed.
+WIDE_TRAINED_REPEATS = 16
 # Lanes of the checks.  Over LONG_ITERS, FP's control is the plain
 # version on the card against itself with the MLP's sums in another
 # correct order, on the same lanes (WIDTH_CONTROL_SUMS, by operands: the
@@ -412,7 +456,9 @@ RING_BITS = ((256, 3, "cfr", 1), (256, 8, "fp", 1), (100, 5, "cfr", 2),
 # The new paths' timed launches at the path's shapes (1024 lanes, 1024
 # iterations, the lane block chosen, or the one named): (game, width,
 # hidden layers, solver, lane block or None, MLP operands); at 2x3f the
-# ring (lane block 4) beside the resident weights (2) on the same net.
+# ring (lane block 4) beside the resident weights (2) on the same net; at
+# 1x4f the wide units, both solvers and both operand types at 512x2 and
+# bf16 CFR at 384x2 (the same padded width, a lower bound).
 WIDTH_TIMED = (((1, 4), 256, 3, "cfr", None, "bf16"),
                ((1, 4), 32, 2, "cfr", None, "bf16"),
                ((1, 4), 100, 2, "fp", None, "bf16"),
@@ -420,7 +466,12 @@ WIDTH_TIMED = (((1, 4), 256, 3, "cfr", None, "bf16"),
                ((2, 3), 256, 2, "cfr", 4, "bf16"),
                ((2, 3), 256, 2, "cfr", 2, "bf16"),
                ((2, 3), 256, 2, "fp", 4, "bf16"),
-               ((2, 3), 256, 2, "fp", 2, "bf16"))
+               ((2, 3), 256, 2, "fp", 2, "bf16"),
+               ((1, 4), 512, 2, "cfr", None, "bf16"),
+               ((1, 4), 512, 2, "fp", None, "bf16"),
+               ((1, 4), 512, 2, "cfr", None, "f32"),
+               ((1, 4), 512, 2, "fp", None, "f32"),
+               ((1, 4), 384, 2, "cfr", None, "bf16"))
 # The run entry with nets other than 256x2 (phase 18): the round-5 run at
 # 3 hidden layers (generation through the bf16 ring, the exploit
 # evaluation through the f32 kernel), and the README's quick run at width
@@ -557,6 +608,8 @@ RUN_ENTRY_ARGS = ROUND5 + ["checkpoint_every=1", "exploit_every=2",
                            "eval_num_repeats=8", "stall_timeout_s=600"]
 RUN_ENTRY_DEEP_ARGS = RUN_ENTRY_ARGS + ["model.kwargs.n_layers=3",
                                         "max_epochs=2"]
+RUN_ENTRY_WIDE_ARGS = RUN_ENTRY_ARGS + ["model.kwargs.n_hidden=512",
+                                        "max_epochs=1"]
 
 # The SPMD path (phase 16), conf/liars_sp.yaml with the round-5
 # overrides at full width.  (a) Trainer.run_spmd in this process at world
@@ -630,8 +683,9 @@ def instantiation(mangled: str) -> tuple[str, str] | None:
     m = INSTANTIATION.search(mangled)
     if m is None:
         return None
-    ws = " workspace" if m[5] == "1" else ""
-    return KERNEL_OF[m[2], m[3]], OPERANDS_OF[m[1], m[4]] + ws
+    ws = " workspace" if m[6] == "1" else ""
+    wide = " w512" if m[1] else ""
+    return KERNEL_OF[m[3], m[4]], OPERANDS_OF[m[2], m[5]] + ws + wide
 
 
 def ring_bits_nets(game, width: int, layers: int, seed: int):
@@ -716,16 +770,19 @@ def build_report(build, grid2p, game, failures: list) -> list[str]:
         groups = 2 if kernel == "grid2_cfr_il2" else 1
         ring = operands.startswith("bf16 ring")
         bf16 = operands.startswith("bf16")
+        wide = operands.endswith("w512")
         ws = (grid2p.max_workspace(2, bf16) if operands.endswith("workspace")
               else 0)
+        width, layers = (512, 2) if wide else (256, 3 if ring else 2)
         smem = grid2p.smem_layout(
-            game, 8, params.get(kernel, True), 256, 3 if ring else 2,
-            bf16, groups, ring=ring, workspace=ws)["total"]
+            game, 8, params.get(kernel, True), width, layers, bf16, groups,
+            ring=ring, workspace=ws)["total"]
         print(f"  {kernel} {operands}: "
               f"{got.get('registers')} registers, spill stores "
               f"{got.get('spill_stores')} B, spill loads "
               f"{got.get('spill_loads')} B, shared memory {smem} B at lane "
-              f"block 8; HGMMA {got.get('HGMMA', 'not counted')}, HMMA "
+              f"block 8 ({width}x{layers}); HGMMA "
+              f"{got.get('HGMMA', 'not counted')}, HMMA "
               f"{got.get('HMMA', 'not counted')}")
         tensor = (got.get("HGMMA", 0), got.get("HMMA", 0))
         if sass is not None and (tensor[0] == 0 if bf16 else any(tensor)):
@@ -820,6 +877,8 @@ def main() -> int:
         grid2p.solve.launches = 0
         for k in KERNELS:
             grid2p.solve.launches_by_kernel[k] = 0
+        for w in grid2p.KERNEL_WIDTHS:
+            grid2p.solve.launches_by_width[w] = 0
 
     def read_counts(path: str, *runs: str, expect: int | None = None) -> int:
         """Add the path's launches to the totals; every kernel of ``runs``
@@ -2365,41 +2424,46 @@ def main() -> int:
         (CFR: the plain version on the CPU on the first CONTROL_LANES
         lanes, chaotic lanes counted; FP: the plain version with the
         sums of WIDTH_CONTROL_SUMS on the same lanes, flip lanes
-        counted, as for the larger games); then RING_BITS and the
-        WIDTH_TIMED launches."""
+        counted, as for the larger games); then WIDE_GAMES the same way,
+        RING_BITS, WIDE_TRAINED and the WIDTH_TIMED launches."""
         import chip_studies
 
-        for k, (width, layers, solver, dname, use_ln, il) in enumerate(
-                WIDTH_CASES):
+        def hold(g_, net, net_dev, solver, dname, name, seed, il=1,
+                 cpu_control=True):
+            """One net against the plain version (WIDTH_CASES' checks),
+            on WIDTH_LANES lanes of ``g_`` from ``seed``; the launch must
+            run the kernel at the plan's padded width.  ``cpu_control``
+            False: bf16 CFR's LONG_ITERS control is the plain version with
+            the tensor cores' chained sums on the same lanes, as the
+            large-games phase holds bf16 (WIDE_GAMES)."""
             dtype = torch.bfloat16 if dname == "bf16" else torch.float32
             bf16 = dtype == torch.bfloat16
             make = cfr if solver == "cfr" else fp
-            net, net_dev = fresh_net(layers, use_ln, 200 + k, seeded_ln=True,
-                                     width=width)
-            lb = grid2p.choose_lane_block(game, make(CHECK_ITERS), net, dtype,
-                                          WIDTH_LANES, interleave=il)
-            plan = grid2p.kernel_plan(game, make(CHECK_ITERS), net, dtype,
+            lb = grid2p.choose_lane_block(g_, make(CHECK_ITERS), net_dev,
+                                          dtype, WIDTH_LANES, interleave=il)
+            plan = grid2p.kernel_plan(g_, make(CHECK_ITERS), net_dev, dtype,
                                       WIDTH_LANES, lb, interleave=il)
             kernel = grid2p.kernel_name(make(1), True, il)
-            name = (f"{width}x{layers} {solver} {dname}"
-                    f"{'' if use_ln else ' noln'}"
-                    f"{' interleave=2' if il == 2 else ''}")
             print(f"widths {name}: {kernel} at lane block {lb}, "
-                  f"{'bf16 ring' if plan.ring else 'resident'}, shared "
-                  f"memory {plan.smem} B")
+                  f"{plan.layout}, shared memory {plan.smem} B, mlp_chunks "
+                  f"{plan.mlp_chunks}")
             if solver == "cfr":
                 tol = TOL_BF16 if bf16 else TOL_F32
             else:
                 tol = TOL_FP_BF16 if bf16 else TOL_FP_F32
-            short = not (solver == "cfr" and bf16 and layers > 3)
+            short = not (solver == "cfr" and bf16 and net.n_layers > 3)
             t0 = time.perf_counter()
             for iters in (CHECK_ITERS, LONG_ITERS) if short else (LONG_ITERS,):
-                inputs = random_inputs(WIDTH_LANES, iters, 300 + k)
-                args = (game, make(iters), *inputs, net_dev)
-                before = grid2p.solve.launches_by_kernel[kernel]
+                inputs = random_inputs(WIDTH_LANES, iters, seed, g_)
+                args = (g_, make(iters), *inputs, net_dev)
+                before = (grid2p.solve.launches_by_kernel[kernel],
+                          grid2p.solve.launches_by_width[plan.width])
                 out = grid2p.solve(*args, dtype, interleave=il)
-                if grid2p.solve.launches_by_kernel[kernel] != before + 1:
-                    failures.append(f"widths {name}: {kernel} not launched")
+                if (grid2p.solve.launches_by_kernel[kernel],
+                        grid2p.solve.launches_by_width[plan.width]) != (
+                            before[0] + 1, before[1] + 1):
+                    failures.append(f"widths {name}: {kernel} not launched "
+                                    f"at width {plan.width}")
                 ref = grid2p.solve_reference(*args, dtype)
                 label = f"widths {name}: B={WIDTH_LANES} iters={iters}"
                 if iters == CHECK_ITERS:
@@ -2410,10 +2474,10 @@ def main() -> int:
                     if bf16:
                         precision_control(label, args, tol)
                     continue
-                if solver == "cfr":
+                if solver == "cfr" and (cpu_control or not bf16):
                     n = CONTROL_LANES
                     when_done(control(
-                        game, make(iters), *[x[:n].cpu() for x in inputs],
+                        g_, make(iters), *[x[:n].cpu() for x in inputs],
                         net, dtype), functools.partial(
                             long_check, f"{label} (control on {n} lanes)",
                             out, ref,
@@ -2424,8 +2488,31 @@ def main() -> int:
                 with chip_studies._products(chip_studies.ORDERS[sums]):
                     other = grid2p.solve_reference(*args, dtype)
                 long_check(f"{label} (control: {sums} sums)", out, ref, ref,
-                           other, flips=FP_TIE_SHARE)
+                           other, flips=FP_TIE_SHARE if solver == "fp"
+                           else TIE_SHARE)
             print(f"  {time.perf_counter() - t0:.1f} s")
+
+        for k, (width, layers, solver, dname, use_ln, il) in enumerate(
+                WIDTH_CASES):
+            net, net_dev = fresh_net(layers, use_ln, 200 + k, seeded_ln=True,
+                                     width=width)
+            name = (f"{width}x{layers} {solver} {dname}"
+                    f"{'' if use_ln else ' noln'}"
+                    f"{' interleave=2' if il == 2 else ''}")
+            hold(game, net, net_dev, solver, dname, name, 300 + k, il)
+        for k, (nd, nf) in enumerate(WIDE_GAMES):
+            g_ = LiarsDice(nd, nf)
+            gen = torch.Generator().manual_seed(260 + k)
+            net = CFVNet(g_, 512, 2, True, generator=gen)
+            with torch.no_grad():  # LayerNorm drawn from the seed too
+                for _, ln in net.hidden_layers():
+                    ln.weight.copy_(0.5 + torch.rand(512, generator=gen))
+                    ln.bias.copy_(torch.rand(512, generator=gen) - 0.5)
+            net_dev = copy.deepcopy(net).to(dev)
+            for solver, dname in WIDE_GAME_MODES[nd, nf]:
+                hold(g_, net, net_dev, solver, dname,
+                     f"{nd}x{nf} 512x2 {solver} {dname}", 270 + k,
+                     cpu_control=False)
         for width, layers, solver, il in RING_BITS:
             make = cfr if solver == "cfr" else fp
             deep, base = ring_bits_nets(game, width, layers, 400 + layers)
@@ -2454,6 +2541,8 @@ def main() -> int:
                   f"{'ok' if ok else 'MISS'}")
             if not ok:
                 failures.append(f"kernel check {label}")
+        for solver in EVAL_CELLS:
+            wide_trained(solver)
         lap("widths: checks")
         for (nd, nf), width, layers, solver, lb, dname in WIDTH_TIMED:
             g_ = LiarsDice(nd, nf)
@@ -2470,19 +2559,67 @@ def main() -> int:
             bound_ms = flops / (H100_BF16_FLOPS if dname == "bf16"
                                 else H100_F32_FLOPS) * 1e3
             kernel = grid2p.kernel_name(make(1))
-            how = "bf16 ring" if plan.ring else "resident"
-            print(f"  {kernel} {nd}x{nf} {width}x{layers} {dname} ({how}): "
-                  f"{ms:.3f} ms a launch of {B} lanes x "
+            print(f"  {kernel} {nd}x{nf} {width}x{layers} {dname} "
+                  f"({plan.layout}): {ms:.3f} ms a launch of {B} lanes x "
                   f"{ITERS} iterations at lane block {lb}; bound "
                   f"{bound_ms:.3f} ms ({flops:.4e} model FLOP at the {dname} "
                   f"peak, share {bound_ms / ms:.2%})")
             game_modes.setdefault(kernel, []).append(dict(
                 game=f"{nd}x{nf}", net=f"{width}x{layers}", operands=dname,
-                ring=plan.ring, lane_block=lb, ms=ms,
+                ring=plan.ring, width=plan.width, lane_block=lb, ms=ms,
                 bound_ms=bound_ms))
             if not finite(out):
                 failures.append(f"widths timed {nd}x{nf} {width}x{layers} "
                                 f"{solver} {dname}: non-finite outputs")
+
+    def wide_trained(solver: str) -> None:
+        """WIDE_TRAINED: the trained 1x4f net of ``solver`` (256x2) in a
+        WIDE_TRAINED_REPEATS-repeat evaluation over the path's subgame
+        iterations, bf16, through the 256-wide units and, padded to 512,
+        through the wide units (``grid2p._force_width``): the two held to
+        each other by EXPLOIT_RTOL; whether they give the same bits is
+        printed (zero padding columns add exact zeros to every sum)."""
+        sub = (cfr if solver == "cfr" else fp)(ITERS)
+        kernel = grid2p.kernel_name(sub)
+        value_fn, net = recursive_eval._load_net(
+            str(ROOT / EVAL_CELLS[solver]["ckpt"]), game, "cuda")
+        got, layouts, wide_n = [], [], 0
+        for width in grid2p.KERNEL_WIDTHS:
+            before = grid2p.solve.launches_by_width[width]
+            t0 = time.perf_counter()
+            with grid2p._force_width(width):
+                fsolver = recursive.Grid2FrontierSolver(
+                    game, sub, torch.float32, None, chunk=1024,
+                    engine="kernel", net=net,
+                    net_compute_dtype=torch.bfloat16, device="cuda")
+                _, reports = recursive_eval.sampled_eval(
+                    game, sub, value_fn, WIDE_TRAINED_REPEATS, None,
+                    dtype=torch.float32, progress=False, device="cuda",
+                    fsolver=fsolver)
+            n = grid2p.solve.launches_by_width[width] - before
+            wide_n += n if width > grid2p.KERNEL_WIDTH else 0
+            got.append(reports[-1])
+            layouts.append(fsolver.layout_used)
+            print(f"  {solver} at width {width}: {n} launches of {kernel}, "
+                  f"lane block {fsolver.lane_block_used}, "
+                  f"{fsolver.layout_used}, {time.perf_counter() - t0:.2f} s")
+        narrow, wide = got
+        rel = abs(wide["exploitability"] - narrow["exploitability"]) / narrow[
+            "exploitability"]
+        same = all(wide[k] == narrow[k] for k in ("exploitability", "e0",
+                                                  "e1"))
+        ok = (math.isfinite(rel) and rel <= EXPLOIT_RTOL[solver]
+              and wide_n > 0 and layouts[1].endswith("@512"))
+        print(f"check widths trained {solver} 256x2 padded to 512: "
+              f"{WIDE_TRAINED_REPEATS} repeats x {ITERS} iters, bf16: wide "
+              f"units {wide['exploitability']:.6f} (e0 {wide['e0']:.6f}, e1 "
+              f"{wide['e1']:.6f}), 256-wide units "
+              f"{narrow['exploitability']:.6f}, relative diff {rel:.3e} "
+              f"limit {EXPLOIT_RTOL[solver]:.1e}, "
+              f"{'the same bits' if same else 'other bits'} "
+              f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            failures.append(f"widths trained {solver}: wide units")
 
     if "widths" in phases:
         widths()
@@ -2493,14 +2630,18 @@ def main() -> int:
         """``rebel_tpu_torch.run`` in process: the round-5 run with 3
         hidden layers (RUN_ENTRY_DEEP_ARGS: generation through the bf16
         ring, the exploit evaluation at epoch 0 through the f32 kernel,
-        both counted), and the README's quick run at width 32
-        (QUICK_RUN_ARGS) on the card."""
+        both counted), the round-5 run at width 512 (RUN_ENTRY_WIDE_ARGS:
+        burn-in and one epoch, generation through the wide bf16 unit, the
+        exploit evaluation through the wide f32 unit, every launch at the
+        padded width 512, and the checkpoint), and the README's quick run
+        at width 32 (QUICK_RUN_ARGS) on the card."""
         import tempfile
 
         from rebel_tpu_torch import run as run_mod
 
         with tempfile.TemporaryDirectory() as tmp:
             for label, argv in (("256x3", RUN_ENTRY_DEEP_ARGS),
+                                ("512x2", RUN_ENTRY_WIDE_ARGS),
                                 ("quick run, width 32",
                                  ["--adhoc", *QUICK_RUN_ARGS])):
                 exp = pathlib.Path(tmp) / label.split()[0].strip(",")
@@ -2523,33 +2664,42 @@ def main() -> int:
                       f" s wall, epochs {tr.epoch}, {tr.gen_steps} generation "
                       f"steps, net {tr.net.n_hidden}x{tr.net.n_layers}, "
                       f"generation {dtype}, lane block "
-                      f"{lb}, {'bf16 ring' if plan.ring else 'resident'}")
+                      f"{lb}, {plan.layout}")
+                by_width = dict(grid2p.solve.launches_by_width)
                 total = read_counts(f"run-entry-widths {label}", kernel)
                 print(f"  {kernel} launches: {tr.gen_steps} in generation, "
                       f"{total - tr.gen_steps} in the exploit evaluations "
-                      "(f32)")
+                      f"(f32); by padded width {by_width}")
                 if total - tr.gen_steps <= 0:
                     failures.append(f"run-entry-widths {label}: no launch in "
                                     "the exploit evaluation")
                 if label == "256x3" and not plan.ring:
                     failures.append("run-entry-widths 256x3: generation "
                                     "does not take the bf16 ring")
+                if label == "512x2" and (
+                        (plan.width, plan.ring) != (512, True)
+                        or by_width[512] != grid2p.solve.launches):
+                    failures.append(f"run-entry-widths 512x2: {plan.layout}, "
+                                    f"launches by width {by_width}")
                 lines = [json.loads(x) for x in
                          (exp / "metrics.jsonl").read_text().splitlines()]
                 for m in lines:
                     print(f"  epoch {m['epoch']}: loss {m['loss/train']:.6f}"
                           + "".join(f", {k} {m[k]:.4g}" for k in (
-                              "exploitability_last", "exploitability_avg",
-                              "timing/exploit") if k in m))
+                              "exploitability_last", "exploitability_avg")
+                              if k in m)
+                          + "".join(f", {k} {v:.4g} s" for k, v in m.items()
+                                    if k.startswith("timing/")))
                 bad = [m["epoch"] for m in lines
                        if not math.isfinite(m["loss/train"])
                        or not 0 <= m.get("exploitability_last", 0) <= 2
                        or not 0 <= m.get("exploitability_avg", 0) <= 2]
+                epochs = [0] if label == "512x2" else [0, 1]
                 files = ["result.json"] + (
-                    ["ckpt/epoch0.params", "ckpt/epoch1.params"]
-                    if label == "256x3" else [])
+                    [f"ckpt/epoch{e}.params" for e in epochs]
+                    if label != "quick run, width 32" else [])
                 absent = [f for f in files if not (exp / f).exists()]
-                if (bad or absent or [m["epoch"] for m in lines] != [0, 1]
+                if (bad or absent or [m["epoch"] for m in lines] != epochs
                         or "exploitability_avg" not in lines[0]):
                     failures.append(f"run-entry-widths {label}: epochs "
                                     f"{[m['epoch'] for m in lines]}, bad "

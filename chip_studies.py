@@ -73,7 +73,8 @@ without a net over one iteration; rows in ``DIR/launches.json``.
 ``plain-ms`` (card only, some ten minutes): the plain version's time
 (``grid2p.solve_reference``) at the modes of PERF.md's kernel table that
 lack it (:data:`PLAIN_MODES`; ``--large``: :data:`PLAIN_LARGE_MODES`,
-2x5f to 3x4f with the fresh nets of ``chip_smoke.py large-games``; with
+2x5f to 3x4f with the fresh nets of ``chip_smoke.py large-games``;
+``--wide``: :data:`PLAIN_WIDE_MODES`, 512x2 and 384x2 at 1x4f; with
 ``--kernel``, the kernel's time on the same inputs); rows in
 ``DIR/plain_ms.json``.
 """
@@ -781,6 +782,11 @@ PLAIN_MODES += [((1, 4), "cfr", "bf16", (256, 3)),
 PLAIN_LARGE_MODES = [((nd, nf), solver, mlp, (256, 2))
                      for nd, nf in ((2, 5), (3, 3), (2, 6), (3, 4))
                      for solver in ("cfr", "fp") for mlp in ("bf16", "f32")]
+# plain-ms --wide: the nets of the wide units (padded width 512) at 1x4f,
+# as chip_smoke.py's widths phase times them (WIDTH_TIMED).
+PLAIN_WIDE_MODES = [((1, 4), solver, mlp, (512, 2))
+                    for solver in ("cfr", "fp") for mlp in ("bf16", "f32")]
+PLAIN_WIDE_MODES += [((1, 4), "cfr", "bf16", (384, 2))]
 GAME_NETS = {**NETS, ((1, 5), "fp"): FP_NETS[1, 5],
              ((1, 6), "cfr"): "results/liars_sp/r5_1x6cfr/ckpt/epoch990.params",
              ((1, 6), "fp"): FP_NETS[1, 6]}
@@ -805,7 +811,8 @@ def plain_ms(args) -> list[dict]:
     card = card_name_and_power_limit()
     rows = []
     for (nd, nf), solver, mlp, (width, layers) in (
-            PLAIN_LARGE_MODES if args.large else PLAIN_MODES):
+            PLAIN_LARGE_MODES if args.large
+            else PLAIN_WIDE_MODES if args.wide else PLAIN_MODES):
         game = LiarsDice(nd, nf)
         A, H = game.num_actions, game.num_hands
         g = torch.Generator().manual_seed(SAME_BITS_SEED)
@@ -964,6 +971,9 @@ def main(argv=None) -> list[dict]:
     pm.add_argument("--large", action="store_true",
                     help="the games of up to 64 hands and actions "
                          "(PLAIN_LARGE_MODES) in place of PLAIN_MODES")
+    pm.add_argument("--wide", action="store_true",
+                    help="the nets of 384 and 512 on the wide units at 1x4f "
+                         "(PLAIN_WIDE_MODES) in place of PLAIN_MODES")
     pm.add_argument("--kernel", action="store_true",
                     help="time the kernel (grid2p.solve) on the same inputs "
                          "in place of the plain version")

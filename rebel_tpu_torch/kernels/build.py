@@ -42,11 +42,11 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
-# Sources compiled in units side by side: grid2_cfr.cu's eighteen
-# instantiations, one a unit.  At most one nvcc a CPU core runs at a time,
-# across the builds of all threads (mlp_breakdown builds its variants side
-# by side).
-UNITS = {"grid2_cfr": 18}
+# Sources compiled in units side by side: grid2_cfr.cu's twenty-two
+# instantiations, one a unit (the last four the wide units, nets of width
+# 257-512).  At most one nvcc a CPU core runs at a time, across the builds
+# of all threads (mlp_breakdown builds its variants side by side).
+UNITS = {"grid2_cfr": 22}
 _NVCC_SLOTS = threading.BoundedSemaphore(os.cpu_count() or 8)
 
 _loaded: dict[str, ctypes.CDLL] = {}

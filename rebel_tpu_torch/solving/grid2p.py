@@ -58,10 +58,15 @@ from rebel_tpu_torch.nets.cfv_net import CFVNet
 from rebel_tpu_torch.solving.grid2b import Grid2BatchSolver, RootCtxB
 from rebel_tpu_torch.solving.params import SubgameSolvingParams
 
-# The padded hidden width the kernel runs every net at (its NHP), the
-# layers padded with zero columns: one build serves widths 1-256.  Wider
-# nets need another design (ROADMAP Queue 6).
+# The padded hidden widths the kernel runs nets at (its NHP), the layers
+# padded with zero columns: nets of width 1-256 at KERNEL_WIDTH, nets of
+# 257-512 at WIDE_WIDTH in the wide units of the build (their own
+# instantiations; WIDE_UNIT0 on).  Wider nets need another design (ROADMAP
+# Queue 6).
 KERNEL_WIDTH = 256
+WIDE_WIDTH = 512
+KERNEL_WIDTHS = (KERNEL_WIDTH, WIDE_WIDTH)
+WIDE_UNIT0 = 18
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 # The games the kernel takes: hands and actions of a row, which the body
 # deals to the lanes of a warp, two values a lane.  Rows wider than
@@ -102,6 +107,27 @@ RING16_STAGES = 4
 # launches call those phases.
 REACH_NB = 4
 WS_BODY_WORDS = 60
+# The wide units' f32 ring stages (RING_K rows: the same 16 KB slabs), bf16
+# ring stages (RING16_K rows of 512 columns, 32 KB each) and f32 rows a
+# warp, in place of RING_K, RING16_STAGES and WARP_ROWS.
+WIDE_RING_K = 8
+WIDE_RING16_STAGES = 2
+WIDE_WARP_ROWS = 4
+
+
+def ring_k(width: int) -> int:
+    """The f32 ring's k rows a stage at padded width ``width``."""
+    return WIDE_RING_K if width > KERNEL_WIDTH else RING_K
+
+
+def ring16_stages(width: int) -> int:
+    """The bf16 ring's stages a group of warps at padded width ``width``."""
+    return WIDE_RING16_STAGES if width > KERNEL_WIDTH else RING16_STAGES
+
+
+def warp_rows(width: int) -> int:
+    """The f32 MLP's query rows a warp at padded width ``width``."""
+    return WIDE_WARP_ROWS if width > KERNEL_WIDTH else WARP_ROWS
 
 
 class Grid2Outputs(NamedTuple):
@@ -284,14 +310,17 @@ def _ceil(n: int, m: int) -> int:
 
 
 def padded_width(n_hidden: int) -> int:
-    """The width the kernel runs a net of ``n_hidden`` at,
-    :data:`KERNEL_WIDTH`.  Raises ``ValueError`` above 256."""
-    if not 1 <= n_hidden <= KERNEL_WIDTH:
+    """The width the kernel runs a net of ``n_hidden`` at:
+    :data:`KERNEL_WIDTH` up to 256, :data:`WIDE_WIDTH` for 257-512 (or at
+    least the width :func:`_force_width` sets).  Raises ``ValueError``
+    above 512."""
+    if not 1 <= n_hidden <= WIDE_WIDTH:
         raise ValueError(
-            f"the kernel takes hidden widths 1-{KERNEL_WIDTH}, not "
-            f"{n_hidden}: wider nets need another design of its bf16 MLP "
-            f"(ROADMAP Queue 6)")
-    return KERNEL_WIDTH
+            f"the kernel takes hidden widths 1-{WIDE_WIDTH} (padded to "
+            f"{KERNEL_WIDTH} or {WIDE_WIDTH}), not {n_hidden}: wider nets "
+            f"need another design of its MLP (ROADMAP Queue 6)")
+    width = KERNEL_WIDTH if n_hidden <= KERNEL_WIDTH else WIDE_WIDTH
+    return max(width, _FORCED_WIDTH or 0)
 
 
 def _core_matrices(w: torch.Tensor, n_pad: int, k_pad: int) -> torch.Tensor:
@@ -399,15 +428,16 @@ def mlp32_words(game: LiarsDice, n_hidden: int) -> int:
 
 
 def pack_f32_rows(w: torch.Tensor) -> torch.Tensor:
-    """``w [K, 256]`` (f32, the product's ``[in, out]``) as the kernel's
-    f32 MLP reads it: in each row, column ``j + 32 (4 c + e)`` at ``128 c +
-    4 j + e``, so that thread ``j`` of a warp, which owns the columns ``j
-    + 32 i``, reads its 8 as two float4 and the warp reads neighbouring
-    words."""
+    """``w [K, N]`` (f32, the product's ``[in, out]``, N a padded width,
+    256 or 512) as the kernel's f32 MLP reads it: in each row, column ``j
+    + 32 (4 c + e)`` at ``128 c + 4 j + e``, so that thread ``j`` of a
+    warp, which owns the columns ``j + 32 i``, reads its N / 32 as float4
+    and the warp reads neighbouring words."""
     k, n = w.shape
-    if n != 256:
-        raise ValueError(f"the f32 MLP packs rows of 256 columns, not {n}")
-    return w.reshape(k, 2, 4, 32).permute(0, 1, 3, 2).contiguous()
+    if n not in KERNEL_WIDTHS:
+        raise ValueError(f"the f32 MLP packs rows of {KERNEL_WIDTH} or "
+                         f"{WIDE_WIDTH} columns, not {n}")
+    return w.reshape(k, n // 128, 4, 32).permute(0, 1, 3, 2).contiguous()
 
 
 @torch.no_grad()
@@ -448,7 +478,12 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
     to stream: each group's :data:`RING_STAGES` stages of :data:`RING_K`
     weight rows, their barriers and counts; bf16 with ``ring``: each
     group's :data:`RING16_STAGES` stages of :data:`RING16_K` rows, their
-    barriers and counts) and ``total``.  ``n_layers`` 0: no net.
+    barriers and counts) and ``total``.  ``n_layers`` 0: no net.  At
+    :data:`WIDE_WIDTH` (one group of warps, no workspace) the rings and
+    the f32 rows take :func:`ring_k`, :func:`ring16_stages` and
+    :func:`warp_rows`; the bf16 MLP keeps its f32 parameters out of shared
+    memory, and ``tile`` is its 64-row tile's A operand and LayerNorm's
+    sums of each half.
     ``mlp_chunks`` does not change it.  ``workspace``: the level (``WS_*``)
     whose arrays live in the device workspace and not in shared memory;
     with one, also ``workspace``, the bytes of a block's part of it (not in
@@ -466,16 +501,23 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
     mma = net and bf16
     fma = net and not bf16
     ring16 = mma and ring
+    wide = n_hidden > KERNEL_WIDTH
     if ring and not (mma and n_layers > 1):
         raise ValueError("the ring streams the hidden layers of a bf16 net "
                          "of two or more")
     if not 0 <= workspace <= max_workspace(n_layers, bf16):
         raise ValueError(f"no workspace level {workspace} for this net")
+    if wide and (groups != 1 or workspace):
+        raise ValueError(f"width {n_hidden} runs in one group of warps "
+                         "without the workspace")
     w0_ring = fma and workspace >= WS_W0  # the f32 first layer streams
     mlp = 0
     if mma:
-        mlp = words(mlp_resident_bytes(game, n_hidden, n_layers, ring) // 4,
-                    2)
+        resident = mlp_resident_bytes(game, n_hidden, n_layers, ring)
+        if wide:  # the f32 parameters stay in device memory
+            resident -= 4 * (3 * n_layers * n_hidden
+                             + _ceil(game.num_hands, 8))
+        mlp = words(resident // 4, 2)
     elif fma:
         mlp = words(0 if w0_ring else mlp32_words(game, n_hidden), 2)
     tables = words(P, P, A * A,
@@ -501,17 +543,21 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
     moved = lambda lvl: 0 < lvl <= workspace
     lanes = words(*(n for lvl, n in state if not moved(lvl)))
     ws_words = words(*(n for lvl, n in state if moved(lvl)))
-    rows = words(WARPS // groups * WARP_ROWS * n_hidden) if fma else 0
+    rows = (words(WARPS // groups * warp_rows(n_hidden) * n_hidden) if fma
+            else 0)
     if ring16:  # the stages are the block's, the barriers each group's
-        stages = words(groups * RING16_STAGES * RING16_K * n_hidden // 2)
-        ring_words = stages + groups * words(3 * RING16_STAGES)
+        st = ring16_stages(n_hidden)
+        stages = words(groups * st * RING16_K * n_hidden // 2)
+        ring_words = stages + groups * words(3 * st)
     elif fma and (n_layers > 1 or w0_ring):
-        ring_words = groups * words(RING_STAGES * RING_K * n_hidden,
+        ring_words = groups * words(RING_STAGES * ring_k(n_hidden) * n_hidden,
                                     3 * RING_STAGES)
     else:
         ring_words = 0
     parts = dict(mlp=mlp, tables=tables, lanes=groups * lanes,
                  rows=groups * rows, ring=ring_words)
+    if wide and mma:
+        parts["tile"] = words(MMA_ROWS * n_hidden // 2, 2 * MMA_ROWS * 2)
     if workspace:  # the f32 MLP's rows hold the rows; one group of warps
         # keeps a WsBody (its launches call the phases)
         parts["scratch"] = (0 if fma else groups * words(
@@ -537,19 +583,21 @@ def max_workspace(n_layers: int, bf16: bool) -> int:
 
 
 def default_mlp_chunks(n_pairs: int, lane_block: int, groups: int,
-                       mma: bool) -> int:
+                       mma: bool, width: int = KERNEL_WIDTH) -> int:
     """``mlp_chunks`` when the caller gives none.  Neither MLP stages a
     group of pairs (the layout does not depend on it), so only the row
     padding counts: the fewest groups of pairs that take the fewest turns
     over the tiles of query rows.  A turn: the tensor-core MLP's (``mma``,
-    bf16 with a net) warpgroups each take a 64-row tile; the f32 MLP's
-    warps each take :data:`WARP_ROWS` rows.  1 at 1x4f for every lane
-    block up to 16, with either."""
+    bf16 with a net) warpgroups each take a 64-row tile (at
+    :data:`WIDE_WIDTH` both take one); the f32 MLP's warps each take
+    :func:`warp_rows` rows.  1 at 1x4f for every lane block up to 16, with
+    either."""
     lanes = lane_block // groups
     if mma:
-        tile, tiles = MMA_ROWS, WARPGROUPS // groups
+        tile = MMA_ROWS
+        tiles = 1 if width > KERNEL_WIDTH else WARPGROUPS // groups
     else:
-        tile, tiles = WARP_ROWS * WARPS // groups, 1
+        tile, tiles = warp_rows(width) * WARPS // groups, 1
 
     def turns(chunks):
         per = -(-n_pairs // chunks)
@@ -767,14 +815,17 @@ class KernelPlan(NamedTuple):
     ring: bool = False  # bf16: the hidden layers stream through the ring
     workspace: int = 0  # the workspace's level (WS_*), 0: none
     ws_bytes: int = 0  # bytes of a block's part of the workspace
+    width: int = KERNEL_WIDTH  # the padded width: a wide unit at 512
 
     @property
     def layout(self) -> str:
         """``resident`` or ``ring`` (the bf16 hidden layers), with
-        ``+workspace<level>`` where arrays live in the device workspace."""
+        ``+workspace<level>`` where arrays live in the device workspace and
+        ``@512`` at :data:`WIDE_WIDTH`."""
         name = "ring" if self.ring else "resident"
         return name + (f"+workspace{self.workspace}" if self.workspace
-                       else "")
+                       else "") + (f"@{self.width}"
+                                   if self.width != KERNEL_WIDTH else "")
 
 
 def kernel_plan(game: LiarsDice, params: SubgameSolvingParams,
@@ -792,7 +843,11 @@ def kernel_plan(game: LiarsDice, params: SubgameSolvingParams,
     ``ValueError`` on an option, a game or a net the kernel does not take
     (over :data:`MAX_ROW` hands or actions, queries over :data:`MAX_K0`
     values, a width over 256) and on a layout that does not fit even so
-    (never shrinks the lane block, never falls back)."""
+    (never shrinks the lane block, never falls back).  A net of width
+    257-512 runs at :data:`WIDE_WIDTH`, its bf16 hidden layers on the ring,
+    without the workspace and in one group of warps: a width over 512, such
+    a net on a game that needs the workspace, and ``interleave=2`` with it
+    raise (ROADMAP Queue 6)."""
     return _plan(game, params, net, net_compute_dtype, batch, lane_block,
                  mlp_chunks, interleave, gelu, ablate,
                  _layouts(game, params, net, net_compute_dtype, interleave))
@@ -802,6 +857,9 @@ def kernel_plan(game: LiarsDice, params: SubgameSolvingParams,
 # the deepest the launch takes), whatever fits.  For the checks that hold
 # the workspace to the shared-memory layout bit for bit.
 _FORCED_WORKSPACE: int | None = None
+# Set by _force_width: every net runs at least at this padded width.  For
+# the checks that hold the wide units to the others on narrower nets.
+_FORCED_WIDTH: int | None = None
 
 
 @contextlib.contextmanager
@@ -818,8 +876,59 @@ def _force_workspace(level: int):
         _FORCED_WORKSPACE = before
 
 
+@contextlib.contextmanager
+def _force_width(width: int):
+    """``with grid2p._force_width(WIDE_WIDTH):`` every plan in the block
+    runs its net at that padded width (zero columns past the net's own),
+    on the units of that width."""
+    global _FORCED_WIDTH
+    if width not in KERNEL_WIDTHS:
+        raise ValueError(f"no padded width {width}; the kernel's are "
+                         f"{KERNEL_WIDTHS}")
+    before, _FORCED_WIDTH = _FORCED_WIDTH, width
+    try:
+        yield
+    finally:
+        _FORCED_WIDTH = before
+
+
 def _n_layers(net) -> int:
     return 0 if net is None else net.n_layers
+
+
+def _width(net) -> int:
+    """The padded width a launch with ``net`` runs at."""
+    return KERNEL_WIDTH if net is None else padded_width(net.n_hidden)
+
+
+def _check_wide(game, params, net, net_compute_dtype, interleave) -> None:
+    """Raises where a net runs at :data:`WIDE_WIDTH` with what the wide
+    units do not take: ``interleave=2`` (two groups of warps, where the
+    wide MLP splits a tile's columns over the warpgroups of one), a forced
+    workspace, a game whose rows or bf16 first layer only the workspace
+    holds (:func:`_wide`), or one whose state fits no lane block without
+    the workspace (ROADMAP Queue 6)."""
+    bf16 = net_compute_dtype == torch.bfloat16
+    width = _width(net)
+    if effective_interleave(params, True, interleave, None) == 2:
+        raise ValueError(
+            f"interleave=2 runs nets of width up to {KERNEL_WIDTH}; at "
+            f"width {width} both warpgroups of a block take one tile "
+            f"(ROADMAP Queue 6)")
+    if _FORCED_WORKSPACE is not None or _wide(game, net, bf16):
+        raise ValueError(
+            f"nets wider than {KERNEL_WIDTH} run without the device "
+            f"workspace, which a game of {game.num_hands} hands and "
+            f"{game.num_actions} actions needs (ROADMAP Queue 6)")
+    ring = bf16 and net.n_layers > 1
+    if smem_layout(game, 1, params.use_cfr, width, net.n_layers, bf16,
+                   optimistic=params.optimistic,
+                   ring=ring)["total"] > SMEM_LIMIT:
+        raise ValueError(
+            f"a net of width {net.n_hidden} at {game.num_dice}x"
+            f"{game.num_faces} fits no lane block without the device "
+            f"workspace, which nets wider than {KERNEL_WIDTH} do not take "
+            f"(ROADMAP Queue 6)")
 
 
 def _wide(game: LiarsDice, net, bf16: bool) -> bool:
@@ -842,6 +951,9 @@ def needs_workspace(game: LiarsDice, params: SubgameSolvingParams,
     groups = effective_interleave(params, net is not None, interleave, None)
     bf16 = net_compute_dtype == torch.bfloat16
     n_layers = _n_layers(net)
+    if _width(net) > KERNEL_WIDTH:
+        _check_wide(game, params, net, net_compute_dtype, interleave)
+        return False
     if _wide(game, net, bf16):
         return True
     rings = (False, True) if bf16 and n_layers > 1 else (False,)
@@ -854,9 +966,13 @@ def _layouts(game, params, net, net_compute_dtype, interleave):
     """The layouts a launch may take, ``(ring, workspace level)`` in the
     order they are tried: resident, ring, then (where the game needs it)
     each level of the workspace with resident weights, then the ring; with
-    a forced workspace only that level."""
+    a forced workspace only that level; at :data:`WIDE_WIDTH` the one
+    layout of the wide units (:func:`_check_wide`)."""
     bf16 = net_compute_dtype == torch.bfloat16
     n_layers = _n_layers(net)
+    if _width(net) > KERNEL_WIDTH:
+        _check_wide(game, params, net, net_compute_dtype, interleave)
+        return [(bf16 and n_layers > 1, 0)]
     rings = (False, True) if bf16 and n_layers > 1 else (False,)
     if _FORCED_WORKSPACE is not None:
         level = max(1, min(_FORCED_WORKSPACE, max_workspace(n_layers, bf16)))
@@ -887,9 +1003,9 @@ def _plan(game, params, net, net_compute_dtype, batch, lane_block,
             f"hands and {A} actions")
     bf16 = net_compute_dtype == torch.bfloat16
     n_layers = 0
+    width = _width(net)
     if net is not None:
         n_layers = net.n_layers
-        padded_width(net.n_hidden)
         if n_layers < 1:
             raise ValueError("the kernel takes nets of one hidden layer "
                              "or more")
@@ -900,14 +1016,14 @@ def _plan(game, params, net, net_compute_dtype, batch, lane_block,
     mma = bf16 and net is not None
     if mlp_chunks is None:
         mlp_chunks = default_mlp_chunks(len(pseudo_leaf_pairs(game)),
-                                        lane_block, groups, mma)
+                                        lane_block, groups, mma, width)
     for ring, level in layouts:
-        got = smem_layout(game, lane_block, params.use_cfr, KERNEL_WIDTH,
+        got = smem_layout(game, lane_block, params.use_cfr, width,
                           n_layers, bf16, groups, params.optimistic, ring,
                           level)
         if got["total"] <= SMEM_LIMIT:
             return KernelPlan(act, groups, mlp_chunks, bf16, got["total"],
-                              ring, level, got.get("workspace", 0))
+                              ring, level, got.get("workspace", 0), width)
     how = " with the bf16 ring" if ring else ""
     if level:
         how += f" and the workspace's level {level}"
@@ -969,13 +1085,14 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     """The fused solve: one launch of ``kernels/grid2_cfr.cu`` runs all
     ``num_iters`` iterations for CUDA inputs (``B % lane_block == 0``);
     CPU inputs take :func:`solve_reference`.  Adds one per kernel launch
-    to ``solve.launches`` and to ``solve.launches_by_kernel`` under
-    :func:`kernel_name`; while ``solve.events`` is a list, appends a pair
-    of CUDA events around each launch; keeps the launch's lane block in
-    ``solve.last_lane_block`` and its layout (:attr:`KernelPlan.layout`)
-    in ``solve.last_layout``.  With bf16 operands and a net the kernel
-    runs the MLP on the tensor cores from the block that
-    :func:`pack_mlp_weights` lays out.  Where the plan takes the device
+    to ``solve.launches``, to ``solve.launches_by_kernel`` under
+    :func:`kernel_name` and to ``solve.launches_by_width`` under the
+    padded width (:attr:`KernelPlan.width`); while ``solve.events`` is a
+    list, appends a pair of CUDA events around each launch; keeps the
+    launch's lane block in ``solve.last_lane_block`` and its layout
+    (:attr:`KernelPlan.layout`) in ``solve.last_layout``.  With bf16
+    operands and a net the kernel runs the MLP on the tensor cores from
+    the block that :func:`pack_mlp_weights` lays out.  Where the plan takes the device
     workspace, the launch allocates it (:attr:`KernelPlan.ws_bytes` a
     block).  Options whose layout does not fit a block's shared memory
     raise (:func:`kernel_plan`) before anything is built or launched; a
@@ -1016,7 +1133,7 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     keep += [rvm, snap0, snap1]
 
     n_hidden = n_layers = ln = 0
-    width = KERNEL_WIDTH
+    width = plan.width
     weights = [None] * 4  # bf16: the packed block; f32: pack_f32_net's
     if net is not None:
         n_hidden, n_layers = net.n_hidden, net.n_layers
@@ -1030,7 +1147,7 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
                 # The ring's slabs: the first layer's rows padded with
                 # zeros to whole slabs, then the hidden layers.
                 first = _pad(weights[0].reshape(Qpad, width),
-                             _ceil(Qpad, RING_K), width)
+                             _ceil(Qpad, ring_k(width)), width)
                 weights[1] = torch.cat(
                     [first] + ([] if weights[1] is None else
                                [weights[1].reshape(-1, width)])).contiguous()
@@ -1087,6 +1204,7 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
         solve.events.append((name, *events))
     solve.launches += 1
     solve.launches_by_kernel[name] += 1
+    solve.launches_by_width[width] += 1
     solve.last_lane_block = lane_block
     solve.last_layout = plan.layout
     return Grid2Outputs(rvm=rvm, snap0=snap0, snap1=snap1)
@@ -1111,8 +1229,11 @@ def kernel_unit(params: SubgameSolvingParams, plan: KernelPlan,
     the instantiation a launch of ``plan`` runs, as the C interface picks
     it: ``3 kind + kernel``, kind 0 f32 (also without a net), 1 bf16, 2
     bf16 on the ring, 3-5 the same with the workspace; kernel 0 CFR, 1 FP,
-    2 the two-group CFR."""
+    2 the two-group CFR; at :data:`WIDE_WIDTH` the wide units,
+    ``WIDE_UNIT0 + 2 mma + fp``."""
     mma = plan.bf16 and has_net
+    if plan.width > KERNEL_WIDTH:
+        return WIDE_UNIT0 + 2 * int(mma) + int(not params.use_cfr)
     kind = (3 if plan.workspace else 0) + ((2 if plan.ring else 1) if mma
                                            else 0)
     kernel = 2 if plan.groups == 2 else 0 if params.use_cfr else 1
@@ -1121,6 +1242,8 @@ def kernel_unit(params: SubgameSolvingParams, plan: KernelPlan,
 
 solve.launches = 0
 solve.launches_by_kernel = dict.fromkeys(KERNEL_NAMES, 0)
+# Launches by the padded width their units run at (KERNEL_WIDTHS).
+solve.launches_by_width = dict.fromkeys(KERNEL_WIDTHS, 0)
 solve.last_lane_block = None
 solve.last_layout = None
 # Set to a list to collect ``(kernel name, start, end)`` CUDA events around

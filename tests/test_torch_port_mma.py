@@ -298,10 +298,11 @@ def test_f32_layout_by_game(dice, faces, use_cfr):
      (dict(dtype=torch.float32, use_cfr=False, lane_block=32),
       "shared memory"),
      (dict(dtype=torch.float16), "float32 or bfloat16"),
-     (dict(dtype=torch.bfloat16, n_hidden=512), "256")])
+     (dict(dtype=torch.bfloat16, n_hidden=513), "256")])
 def test_plan_raises_before_any_launch(kw, match):
     """Layouts that do not fit (even with the bf16 ring) and nets the
-    kernel does not take (wider than 256) raise in kernel_plan, which
+    kernel does not take (wider than 512; the message names both padded
+    widths) raise in kernel_plan, which
     needs no card: solve calls it before it builds or
     launches anything, and never shrinks the lane block to make one fit."""
     net = _net(n_hidden=kw.get("n_hidden", 256),

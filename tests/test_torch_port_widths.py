@@ -1,10 +1,11 @@
 """Nets of any width up to 256 and any depth in the port's fused solve.
 
-The kernel (``kernels/grid2_cfr.cu``) runs every net at the padded width
-256 (``grid2p.KERNEL_WIDTH``), every layer padded with zero columns;
-bf16 nets whose hidden matrices do not fit shared memory stream them
-through a ring of slabs.  It runs on the card only (``chip_smoke.py``
-phase ``widths``); here, on the CPU:
+The kernel (``kernels/grid2_cfr.cu``) runs every net of width 1-256 at the
+padded width 256 (``grid2p.KERNEL_WIDTH``), every layer padded with zero
+columns; bf16 nets whose hidden matrices do not fit shared memory stream
+them through a ring of slabs (nets of 257-512 run in the kernel's wide
+units: ``tests/test_torch_port_wide.py``).  It runs on the card only
+(``chip_smoke.py`` phase ``widths``); here, on the CPU:
 
 (a) the port's fused solve (its plain version, which the wrapper takes for
     CPU tensors and the card holds the kernel to) against the JAX
@@ -163,12 +164,14 @@ def _mlp(x, weights, f32, width, real_width, n_layers, use_ln):
 
 @pytest.mark.parametrize("real_width,n_layers,use_ln",
                          [(16, 1, True), (48, 3, False), (100, 4, True),
-                          (200, 2, True), (256, 3, True)])
+                          (200, 2, True), (256, 3, True), (300, 2, True),
+                          (384, 3, False), (512, 1, True), (512, 2, True)])
 def test_packed_mlp_at_the_padded_width_is_the_net(real_width, n_layers,
                                                    use_ln):
     """(b): the MLP that reads the wrapper's packing at the padded width
-    (the bf16 block in both orders, and the f32 rows) is the net at its
-    own width: bit for bit in its weights, to f32 rounding in its output."""
+    (the bf16 block in both orders, and the f32 rows; 512 for nets wider
+    than 256) is the net at its own width: bit for bit in its weights, to
+    f32 rounding in its output."""
     game = LiarsDice(1, 4)
     net = CFVNet(game, real_width, n_layers, use_ln,
                  generator=torch.Generator().manual_seed(real_width))
@@ -280,15 +283,18 @@ def test_explicit_lane_blocks_take_the_ring_or_raise():
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_width_over_256_raises_before_any_launch(dtype):
+    """A width over 512 (the wide units' padded width; 257-512 run, as
+    tests/test_torch_port_wide.py holds) raises before any build or
+    launch, naming the limit."""
     game = LiarsDice(1, 4)
-    net = _net(game, 512)
+    net = _net(game, 513)
     launches = grid2p.solve.launches
     for call in (
             lambda: grid2p.kernel_plan(game, _params(True), net, dtype,
                                        1024, 8),
             lambda: grid2p.choose_lane_block(game, _params(True), net,
                                              dtype, 1024)):
-        with pytest.raises(ValueError, match="256"):
+        with pytest.raises(ValueError, match="1-512"):
             call()
     assert grid2p.solve.launches == launches
 
@@ -326,15 +332,28 @@ def test_smem_layout_of_both_layouts():
 
 def test_python_constants_are_the_kernels():
     """The wrapper's mirrors of the kernel's constants: the rings' sizes,
-    the padded width, and the breakdown's switches."""
+    the padded widths (the narrow units' and the wide units', from which
+    unit on) and the wide units' rings and rows, and the breakdown's
+    switches."""
     from rebel_tpu_torch import mlp_breakdown
 
     src = KERNEL.read_text()
     define = lambda name: int(re.search(rf"#define {name} (\d+)", src)[1])
     for name in ("RING_K", "RING_STAGES", "RING16_K", "RING16_STAGES",
-                 "MMA_ROWS", "WARP_ROWS", "REACH_NB"):
+                 "MMA_ROWS", "WARP_ROWS", "REACH_NB", "WIDE_RING_K",
+                 "WIDE_RING16_STAGES", "WIDE_WARP_ROWS", "WIDE_UNIT0"):
         assert define(name) == getattr(grid2p, name), name
-    assert define("NHP") == grid2p.KERNEL_WIDTH == 256
+    assert define("NARROW_NHP") == grid2p.KERNEL_WIDTH == 256
+    assert define("WIDE_NHP") == grid2p.WIDE_WIDTH == 512
+    assert grid2p.KERNEL_WIDTHS == (256, 512)
+    for width in grid2p.KERNEL_WIDTHS:
+        wide = width == grid2p.WIDE_WIDTH
+        assert grid2p.ring_k(width) == define("WIDE_RING_K" if wide
+                                              else "RING_K")
+        assert grid2p.ring16_stages(width) == define(
+            "WIDE_RING16_STAGES" if wide else "RING16_STAGES")
+        assert grid2p.warp_rows(width) == define("WIDE_WARP_ROWS" if wide
+                                                 else "WARP_ROWS")
     cuts = dict(re.findall(r"#define CUT_(\w+) (\d+)", src))
     assert {k: int(v) for k, v in cuts.items()} == mlp_breakdown.CUTS
 
@@ -346,13 +365,20 @@ def test_kernel_unit_is_the_c_interfaces_choice(use_cfr):
     the source: every combination of workspace, operands, ring and
     groups."""
     src = KERNEL.read_text()
+    assert ("if (width > NARROW_NHP) return WIDE_UNIT0 + 2 * mma + (p.fp ? 1 "
+            ": 0);") in src
     assert ("const int kind = (p.ws_level > 0 ? 3 : 0) + (mma ? (p.ring ? 2 "
             ": 1) : 0);") in src
     assert "const int kernel = p.groups == 2 ? 2 : p.fp ? 1 : 0;" in src
-    assert "return unit_launches[3 * kind + kernel](p, smem, s);" in src
+    assert "return 3 * kind + kernel;" in src
+    assert "return unit_launches[unit](p, smem, s);" in src
     assert "constexpr int kind = U / 3, kernel = U % 3;" in src
     assert ("return launch<WT, kernel == 1, kernel == 2 ? 2 : 1, kind % 3 == "
-            "2,\n                  (kind >= 3)>(p, smem, s);") in src
+            "2,\n                      (kind >= 3)>(p, smem, s);") in src
+    assert "constexpr bool mma = (U - WIDE_UNIT0) / 2 == 1;" in src
+    assert ("return launch<WT, (U - WIDE_UNIT0) % 2 == 1, 1, mma, false>(p, "
+            "smem,") in src
+    assert "constexpr int UNITS = 22;" in src
     params = SubgameSolvingParams(num_iters=4, max_depth=2, use_cfr=use_cfr,
                                   linear_update=True)
     seen = set()
@@ -373,6 +399,24 @@ def test_kernel_unit_is_the_c_interfaces_choice(use_cfr):
         seen.add(unit)
     assert seen == ({u for u in range(18) if u % 3 != 1} if use_cfr
                     else {u for u in range(18) if u % 3 == 1})
+    # The wide units: operands and FP, one group of warps, no workspace;
+    # bf16 on the ring where the net has hidden matrices (its template's
+    # ring flag is the operands').
+    wide = set()
+    for bf16, net, ring in itertools.product((False, True), (False, True),
+                                             (False, True)):
+        plan = grid2p.KernelPlan("exact", 1, 1, bf16, 0, ring, 0, 0,
+                                 grid2p.WIDE_WIDTH)
+        unit = grid2p.kernel_unit(params, plan, net)
+        mma = bf16 and net
+        assert unit == grid2p.WIDE_UNIT0 + 2 * mma + (not use_cfr)
+        assert ((unit - grid2p.WIDE_UNIT0) // 2 == 1,
+                (unit - grid2p.WIDE_UNIT0) % 2 == 1) == (mma, not use_cfr)
+        wide.add(unit)
+    assert wide == {grid2p.WIDE_UNIT0 + 2 * m + (not use_cfr)
+                    for m in (0, 1)}
+    from rebel_tpu_torch.kernels import build
+    assert build.UNITS["grid2_cfr"] == grid2p.WIDE_UNIT0 + 4
 
 
 def _chip_smoke():
