@@ -183,6 +183,12 @@ MUTANTS = {
         "for (int h = 0; h < H; ++h) sum += rw[h];",
         "for (int h = 0; h < min(H, 32); ++h) sum += rw[h];",
         LARGE_PHASES),
+    # Rows of 65-128 hands (four values a lane): the reach phase's sums
+    # over an item's hands leave out hands 96 and on (2x10f has 100).
+    "reach-drop-96": (
+        "for (int h = 0; h < H; ++h) sum += rw[h];",
+        "for (int h = 0; h < min(H, 96); ++h) sum += rw[h];",
+        LARGE_PHASES),
     "workspace-barrier-dropped": (
         "        gsync();\n\n        // ---- 2. terminal values",
         "        if constexpr (!WS) gsync();\n\n"

@@ -149,21 +149,25 @@ an H100, ``sm_90a``).  It
    a control (f32: the plain version on the CPU; bf16: the plain version
    with the tensor cores' chained sums), with the plan, a timed launch of
    1024 lanes x 1024 iterations beside its bound; the boundary games 3x4f
-   (64 hands) and 1x16f (33 actions) on 64 lanes; and the workspace forced
-   to its deepest level held to the default layout bit for bit over 1024
-   iterations (WORKSPACE_BITS: 1x4f and 2x3f, CFR and FP, bf16 and f32,
-   2x6f, and ``grid2_cfr_il2`` on the workspace at 1x4f and 2x6f);
+   (64 hands) and 1x16f (33 actions) on 64 lanes; the games of 65-128
+   hands, 4x3f, 2x9f and 2x10f (HANDS128_GAMES, on 256 lanes, timed at
+   264 lanes); and the workspace forced to its deepest level held to the
+   default layout bit for bit over 1024 iterations (WORKSPACE_BITS: 1x4f
+   and 2x3f, CFR and FP, bf16 and f32, 2x6f and 4x3f, and
+   ``grid2_cfr_il2`` on the workspace at 1x4f and 2x6f);
 20. ``run-entry-2x6``: the run entry with the round-5 overrides at
    ``env.num_dice=2 env.num_faces=6``: burn-in and one epoch through
    ``grid2_cfr`` on the workspace layout, and the checkpoint;
-21. prints the whole run's seconds, one ``{"kernels": [...]}`` line with
+21. ``run-entry-4x3``: the same at ``env.num_dice=4 env.num_faces=3``
+   (81 hands);
+22. prints the whole run's seconds, one ``{"kernels": [...]}`` line with
    the three kernels (each with its lane block at the main path's shapes,
    its instantiations, and, under ``modes``, the larger games' and the new
    paths' timed launches with theirs) and ``{"ok": true, "device":
    {...}}`` as the last line.
 
 The launch counts of the kernels are set to 0 just before each of the
-paths (4, 6 for each net, 8, 10, each run of 11, 14, 16a, 18, 19, 20)
+paths (4, 6 for each net, 8, 10, each run of 11, 14, 16a, 18, 19, 20, 21)
 and read
 just after; a kernel that a path should run and did not fails the run.  In 11,
 ``grid2_cfr`` must run in generation (bf16) and in the evaluation (f32).
@@ -362,7 +366,8 @@ INSTANTIATIONS = 22
 PHASES = ("cfr-checks", "fp-checks", "cfr-selfplay", "cfr-shapes", "eval",
           "exploit-check", "fp-selfplay", "knob-checks", "bench", "run-entry",
           "games", "games-exploit", "run-entry-2x3", "fast-check", "spmd",
-          "widths", "run-entry-widths", "large-games", "run-entry-2x6")
+          "widths", "run-entry-widths", "large-games", "run-entry-2x6",
+          "run-entry-4x3")
 
 # The nets of every width and depth the kernel takes (phase 17), each on
 # 1x4f against the plain version with a fresh net from a seed (LayerNorm
@@ -571,6 +576,13 @@ RUN_ENTRY_2X3_ARGS = ["selfplay.engine=pallas",
 # operands, interleave)).
 LARGE_GAMES = ((2, 5), (3, 3), (2, 6))
 LARGE_LANES = 256
+# The games of 65-128 hands (phase 19), each with a fresh 256x2 net from
+# its seed (mlp_breakdown.LARGE_NET_SEEDS): held as LARGE_GAMES are, on
+# LARGE_LANES lanes, and timed at HANDS128_TIMED_LANES lanes (two full
+# waves of the 132 SMs at lane block 1) x ITERS iterations, where a launch
+# of 1024 lanes would take seconds (bf16) to tens of seconds (f32).
+HANDS128_GAMES = ((4, 3), (2, 9), (2, 10))
+HANDS128_TIMED_LANES = 264
 LARGE_CONTROL_LANES = 16
 BOUNDARY_GAMES = ((3, 4), (1, 16))
 BOUNDARY_LANES = 64
@@ -578,18 +590,20 @@ BOUNDARY_LANES = 64
 # or the tensor cores' chained sums) already read the phase's fresh net
 # over CHECK_ITERS iterations in bf16 apart by more than the limit on its
 # lanes (`chip_studies.py sum-order --fresh`, PERF.md): CFR's max_abs_diff
-# 1.061e-03 at 2x5f, 1.844e-03 at 2x6f, 1.475e-03 at 3x4f against
-# TOL_BF16 (3x3f 8.99e-04, 1x16f 1.3e-05); FP's flip lanes 3.1% at 3x4f
-# against FP_TIE_SHARE.  There the kernel is held over LONG_ITERS by the
-# statistics against a control only.
+# 1.061e-03 at 2x5f, 1.844e-03 at 2x6f, 1.475e-03 at 3x4f, 1.251e-03
+# (f32 against f64 sums) and 1.243e-03 (against the tensor cores' chained
+# sums) at 2x9f against TOL_BF16 (3x3f 8.99e-04, 1x16f 1.3e-05; 4x3f
+# 1.040e-03, where the kernel reads 7.6e-04 and is held); FP's flip lanes
+# 3.1% at 3x4f against FP_TIE_SHARE.  There the kernel is held over
+# LONG_ITERS by the statistics against a control only.
 BF16_LONG_ONLY = {("cfr", (2, 5)), ("cfr", (2, 6)), ("cfr", (3, 4)),
-                  ("fp", (3, 4))}
+                  ("fp", (3, 4)), ("cfr", (2, 9))}
 WORKSPACE_BITS = (((1, 4), "cfr", "bf16", 1), ((1, 4), "fp", "bf16", 1),
                   ((1, 4), "cfr", "f32", 1), ((1, 4), "fp", "f32", 1),
                   ((2, 3), "cfr", "bf16", 1), ((2, 3), "fp", "bf16", 1),
                   ((2, 3), "cfr", "f32", 1), ((2, 3), "fp", "f32", 1),
                   ((1, 4), "cfr", "bf16", 2), ((2, 6), "cfr", "bf16", 1),
-                  ((2, 6), "cfr", "bf16", 2))
+                  ((2, 6), "cfr", "bf16", 2), ((4, 3), "cfr", "bf16", 1))
 WORKSPACE_BITS_LANES = 256
 # The run entry at 2x6 (phase 20): the round-5 overrides at 2x6f, burn-in
 # and one epoch with its checkpoint, no exploit evaluation (the full tree
@@ -599,6 +613,10 @@ RUN_ENTRY_2X6_ARGS = ["selfplay.engine=pallas",
                       "env.subgame_params.use_cfr=true", "env.num_dice=2",
                       "env.num_faces=6", "exploit=false", "checkpoint_every=1",
                       "max_epochs=1", "stall_timeout_s=600"]
+# The run entry at 4x3 (phase 21): the same at 4x3f (81 hands, reach rows
+# four values a lane).
+RUN_ENTRY_4X3_ARGS = [*RUN_ENTRY_2X6_ARGS[:3], "env.num_dice=4",
+                      "env.num_faces=3", *RUN_ENTRY_2X6_ARGS[5:]]
 
 # The run entry (phase 11): conf/liars_sp.yaml with the round-5 overrides
 # (scripts/round5_run.sh), cut to two epochs and a resumed third.
@@ -771,8 +789,8 @@ def build_report(build, grid2p, game, failures: list) -> list[str]:
         ring = operands.startswith("bf16 ring")
         bf16 = operands.startswith("bf16")
         wide = operands.endswith("w512")
-        ws = (grid2p.max_workspace(2, bf16) if operands.endswith("workspace")
-              else 0)
+        ws = (grid2p.max_workspace(2, bf16, groups)
+              if operands.endswith("workspace") else 0)
         width, layers = (512, 2) if wide else (256, 3 if ring else 2)
         smem = grid2p.smem_layout(
             game, 8, params.get(kernel, True), width, layers, bf16, groups,
@@ -2788,32 +2806,38 @@ def main() -> int:
                     flips=FP_TIE_SHARE if solver == "fp" else None))
 
     def large_games() -> None:
-        """LARGE_GAMES, CFR and FP, bf16 and f32, fresh 256x2 nets: the
-        plan, then ``hold_large`` on LARGE_LANES lanes (the f32 controls
-        submitted to the control workers first), and one timed launch
-        of B lanes x ITERS iterations beside the bound of the game's MLP
-        FLOP.  Then the boundary games on BOUNDARY_LANES lanes (over
-        CHECK_ITERS iterations, or LONG_ITERS where BF16_LONG_ONLY says),
-        and the workspace held to the shared-memory layout bit for bit
+        """LARGE_GAMES and HANDS128_GAMES, CFR and FP, bf16 and f32, fresh
+        256x2 nets: the plan, then ``hold_large`` on LARGE_LANES lanes
+        (the f32 controls submitted to the control workers first), and one
+        timed launch of B (or HANDS128_TIMED_LANES)
+        lanes x ITERS iterations beside the bound of the game's MLP FLOP.
+        Then the boundary games on BOUNDARY_LANES lanes (over CHECK_ITERS
+        iterations, or LONG_ITERS where BF16_LONG_ONLY says), and the
+        workspace held to the shared-memory layout bit for bit
         (WORKSPACE_BITS)."""
+        from rebel_tpu_torch.mlp_breakdown import LARGE_NET_SEEDS
+
         n = LARGE_CONTROL_LANES
         cases = []
-        for k, (nd, nf) in enumerate(LARGE_GAMES):
+        games = ([(g, 300 + k, 310 + k, B) for k, g in enumerate(LARGE_GAMES)]
+                 + [(g, LARGE_NET_SEEDS[g], 370 + k, HANDS128_TIMED_LANES)
+                    for k, g in enumerate(HANDS128_GAMES)])
+        for (nd, nf), net_seed, seed, timed in games:
             g_ = LiarsDice(nd, nf)
-            net = large_net(g_, 300 + k)
+            net = large_net(g_, net_seed)
             net_cpu = copy.deepcopy(net).cpu()
             for solver in ("cfr", "fp"):
                 make = cfr if solver == "cfr" else fp
                 for dtype in (torch.bfloat16, torch.float32):
                     cpu = None
                     if dtype == torch.float32:
-                        inputs = random_inputs(LARGE_LANES, LONG_ITERS,
-                                               310 + k, g_)
+                        inputs = random_inputs(LARGE_LANES, LONG_ITERS, seed,
+                                               g_)
                         cpu = control(g_, make(LONG_ITERS),
                                       *[x[:n].cpu() for x in inputs],
                                       net_cpu, dtype)
-                    cases.append((g_, solver, dtype, net, cpu, k))
-        for g_, solver, dtype, net, cpu, k in cases:
+                    cases.append((g_, solver, dtype, net, cpu, seed, timed))
+        for g_, solver, dtype, net, cpu, seed, timed in cases:
             bf16 = dtype == torch.bfloat16
             nd, nf = g_.num_dice, g_.num_faces
             name = f"{nd}x{nf} {solver} {'bf16' if bf16 else 'f32'}"
@@ -2821,32 +2845,33 @@ def main() -> int:
             kernel = grid2p.kernel_name(make(ITERS))
             print(f"large-games {name}: {kernel}, H={g_.num_hands} "
                   f"A={g_.num_actions} Q={g_.query_size}")
-            lb, plan = plan_line(g_, make(ITERS), net, dtype, B)
+            lb, plan = plan_line(g_, make(ITERS), net, dtype, timed)
             lanes_lb, _ = plan_line(g_, make(ITERS), net, dtype, LARGE_LANES)
-            hold_large(g_, solver, dtype, net, LARGE_LANES,
-                       (320 + k, 310 + k), cpu)
+            hold_large(g_, solver, dtype, net, LARGE_LANES, (seed + 10, seed),
+                       cpu)
             if grid2p.solve.last_lane_block != lanes_lb:
                 failures.append(f"large-games {name}: launched at lane block "
                                 f"{grid2p.solve.last_lane_block}, chosen "
                                 f"{lanes_lb}")
-            args = (g_, make(ITERS), *random_inputs(B, ITERS, 330 + k, g_),
-                    net)
+            args = (g_, make(ITERS),
+                    *random_inputs(timed, ITERS, seed + 20, g_), net)
             # The instantiation has run in hold_large: no warm-up.
             ms, out = time_kernel(args, reps=1, dtype=dtype, warm=False)
-            flops = grid2p.mlp_flops_per_lane_iter(g_, 256, 2) * B * ITERS
+            flops = grid2p.mlp_flops_per_lane_iter(g_, 256, 2) * timed * ITERS
             bound_ms = flops / (H100_BF16_FLOPS if bf16
                                 else H100_F32_FLOPS) * 1e3
-            print(f"  {kernel} {name}: {ms:.3f} ms a launch of {B} lanes x "
-                  f"{ITERS} iterations at lane block {lb}, {plan.layout}; "
+            print(f"  {kernel} {name}: {ms:.3f} ms a launch of {timed} lanes "
+                  f"x {ITERS} iterations at lane block {lb}, {plan.layout}; "
                   f"bound {bound_ms:.3f} ms ({flops:.4e} model FLOP at the "
                   f"{'bf16' if bf16 else 'f32'} peak, share "
                   f"{bound_ms / ms:.2%})")
             game_modes.setdefault(kernel, []).append(dict(
                 game=f"{nd}x{nf}", operands="bf16" if bf16 else "f32",
-                lane_block=lb, layout=plan.layout, ms=ms, bound_ms=bound_ms))
+                lanes=timed, iters=ITERS, lane_block=lb, layout=plan.layout,
+                ms=ms, bound_ms=bound_ms))
             if not finite(out):
                 failures.append(f"large-games {name}: non-finite outputs at "
-                                f"B={B}")
+                                f"B={timed}")
         for k, (nd, nf) in enumerate(BOUNDARY_GAMES):
             g_ = LiarsDice(nd, nf)
             net = large_net(g_, 340 + k)
@@ -2901,35 +2926,35 @@ def main() -> int:
         read_counts("large-games", "grid2_cfr", "grid2_fp", "grid2_cfr_il2")
         lap("large-games")
 
-    # ------------------------------------------- 20. the run entry at 2x6
-    def run_entry_2x6() -> None:
-        """``python -m rebel_tpu_torch.run`` in process at 2x6f (36 hands,
-        a query of 99 values) with the round-5 overrides: burn-in and one
-        epoch through ``grid2_cfr`` on the workspace layout, and the
-        checkpoint."""
+    # ------------------------------- 20, 21. the run entry at 2x6 and 4x3
+    def run_entry_game(phase: str, argv: list) -> None:
+        """``python -m rebel_tpu_torch.run`` in process at a workspace game
+        (2x6f: 36 hands, a query of 99 values; 4x3f: 81 hands, 189) with
+        the round-5 overrides (``argv``): burn-in and one epoch through
+        ``grid2_cfr`` on the workspace layout, and the checkpoint."""
         import tempfile
 
         from rebel_tpu_torch import run as run_mod
 
         with tempfile.TemporaryDirectory() as tmp:
-            exp = pathlib.Path(tmp) / "liars_sp_2x6"
+            exp = pathlib.Path(tmp) / f"liars_sp_{phase}"
             reset_counts()
             t0 = time.perf_counter()
             out = run_mod.execute([
                 "--cfg", str(ROOT / "conf" / "liars_sp.yaml"), "--exp_dir",
-                str(exp), "--mode", "gentle_start", *RUN_ENTRY_2X6_ARGS])
+                str(exp), "--mode", "gentle_start", *argv])
             torch.cuda.synchronize()
             tr = out.trainer
             kernel = grid2p.kernel_name(tr.cfg.env.subgame_params)
-            print(f"run-entry-2x6: {time.perf_counter() - t0:.2f} s wall, "
+            print(f"{phase}: {time.perf_counter() - t0:.2f} s wall, "
                   f"epochs {tr.epoch}, {tr.gen_steps} generation steps "
                   f"(burn-in {tr.burn_in_s:.3f} s) through {kernel} at lane "
                   f"block {grid2p.solve.last_lane_block}, "
                   f"{grid2p.solve.last_layout}")
-            read_counts("run-entry-2x6", kernel, expect=tr.gen_steps)
+            read_counts(phase, kernel, expect=tr.gen_steps)
             if kernel != "grid2_cfr" or "workspace" not in str(
                     grid2p.solve.last_layout):
-                failures.append(f"run-entry-2x6: {kernel} on "
+                failures.append(f"{phase}: {kernel} on "
                                 f"{grid2p.solve.last_layout}")
             m = json.loads((exp / "metrics.jsonl").read_text().splitlines()[0])
             print(f"  epoch 0: generation {m['timing/gen']:.3f} s, training "
@@ -2940,12 +2965,14 @@ def main() -> int:
                                   "result.json")
                       if not (exp / f).exists()]
             if absent or not math.isfinite(m["loss/train"]):
-                failures.append(f"run-entry-2x6: files missing {absent} or "
+                failures.append(f"{phase}: files missing {absent} or "
                                 f"loss {m['loss/train']}")
 
-    if "run-entry-2x6" in phases:
-        run_entry_2x6()
-        lap("run-entry-2x6")
+    for phase, argv in (("run-entry-2x6", RUN_ENTRY_2X6_ARGS),
+                        ("run-entry-4x3", RUN_ENTRY_4X3_ARGS)):
+        if phase in phases:
+            run_entry_game(phase, argv)
+            lap(phase)
 
     t0 = time.perf_counter()
     settle(block=True)

@@ -11,6 +11,7 @@ not checks: what ``PERF.md`` quotes beside ``chip_smoke.py``'s readings.
         [--cells CELL ...]]
     python3 chip_studies.py launches --out DIR
     python3 chip_studies.py plain-ms --out DIR
+    python3 chip_studies.py bounds --out DIR [--games 2x5 ...]
 
 From the root of a checkout.  ``drift`` (card only): the exploitability
 of a ``--repeats``-repeat sampled evaluation (depth-2 subgames, the
@@ -29,7 +30,9 @@ version); rows in ``DIR/f32_ladder.json``.  ``sum-order`` (the CPU by
 default): the plain version of the fused solve with bf16 operands, the
 repo's trained FP net of ``--game`` (or, with ``--fresh WIDTHxLAYERS``,
 the fresh net of ``chip_smoke.py``'s ``widths`` phase from
-``--net-seed``, ``--solver`` CFR or FP, ``--noln`` without LayerNorm)
+``--net-seed``, ``--solver`` CFR or FP, ``--noln`` without LayerNorm;
+``--operands f32``: f32 operands, the orders ``f32``, ``f64`` and
+``f64_solve``, the whole solve in f64)
 and ``chip_smoke.py``'s ``games`` inputs (``--lanes`` lanes from
 ``--seed``, ``--iters`` iterations), with the MLP's sums taken in each
 order of :data:`ORDERS`, and with the f32 rounding of the kernel's
@@ -74,9 +77,26 @@ without a net over one iteration; rows in ``DIR/launches.json``.
 (``grid2p.solve_reference``) at the modes of PERF.md's kernel table that
 lack it (:data:`PLAIN_MODES`; ``--large``: :data:`PLAIN_LARGE_MODES`,
 2x5f to 3x4f with the fresh nets of ``chip_smoke.py large-games``;
-``--wide``: :data:`PLAIN_WIDE_MODES`, 512x2 and 384x2 at 1x4f; with
+``--wide``: :data:`PLAIN_WIDE_MODES`, 512x2 and 384x2 at 1x4f;
+``--hands128``: :data:`PLAIN_HANDS128_MODES`, 4x3f, 2x9f and 2x10f at 264
+lanes; with
 ``--kernel``, the kernel's time on the same inputs); rows in
-``DIR/plain_ms.json``.
+``DIR/plain_ms.json``.  ``bounds`` (card only, some 5 minutes with its
+build): the index-checked build of the workspace instantiations
+(``kernels/build.py`` ``load_checked``: every index into a part of the
+workspace or of shared memory checked, a trap that prints the part, block,
+thread and index where one leaves it; its two-group instantiations call
+the body's phases as the one-group ones do) on every game of
+``chip_smoke.py large-games`` (:data:`BOUNDS_GAMES`), CFR and FP, bf16 and
+f32, the fresh 256x2 nets, at every workspace level ``_force_workspace``
+reaches whose layout fits (and ``interleave=2`` at the games of up to 64
+hands; at 1x4f and 2x6f also at level 4 on 256 lanes x 1024 iterations,
+:data:`BOUNDS_LONG`), :data:`BOUNDS_LANES` lanes x :data:`BOUNDS_ITERS`
+iterations, each
+launch held bit for bit to the unchecked build's launch at the chosen
+layout; a game a process (a trap ends its process); then the
+``bytes stack frame`` of every function of both builds (``-Xptxas -v``);
+rows in ``DIR/bounds.json``.
 """
 
 from __future__ import annotations
@@ -167,8 +187,9 @@ def _products(matmul):
 # name: the MLP's matmul (None: the plain version's own f32 product)
 ORDERS = {"f32": None, "f64": _f64, "tc_chained": _tc_chained,
           "tc_steps": _tc_steps}
-# sum-order's plain versions: ORDERS and the kernel's epilogue rounding.
-SUM_ORDERS = [*ORDERS, "kernel_epilogue"]
+# sum-order's plain versions: ORDERS, the kernel's epilogue rounding, and
+# (f32 operands) the whole solve in f64.
+SUM_ORDERS = [*ORDERS, "kernel_epilogue", "f64_solve"]
 # chip_smoke.py's LANE_TOL: a lane whose snapshots differ anywhere by more
 # is counted in sum-order's ``snap_lanes``, as the check counts it.
 LANE_TOL = 0.05
@@ -185,6 +206,30 @@ _GELU_POLY = (1.40787036032954e-05, -0.00034346830302456875,
               0.0037230956091636926, -0.024381732600758942,
               0.11078739955649257, -0.37547712975483916,
               1.1283452779263845)
+
+
+def _f64_mlp(net):
+    """The plain version's f32 MLP (``grid2p.kernel_mlp`` with f32
+    operands: one-pass LayerNorm, the exact-erf GELU) in f64 throughout."""
+    import copy
+
+    from rebel_tpu_torch.solving import grid2p
+
+    net = copy.deepcopy(net).double()
+
+    def mlp(x):
+        x = x.double().T
+        for lin, ln in net.hidden_layers():
+            x = x @ lin.weight.T + lin.bias
+            if ln is not None:
+                mu = x.mean(-1, keepdim=True)
+                var = ((x * x).mean(-1, keepdim=True) - mu * mu).clamp(min=0)
+                r = (var + 1e-5).rsqrt()
+                x = (x * r - mu * r) * ln.weight + ln.bias
+            x = grid2p.gelu_erf(x)
+        return (x @ net.output.weight.T + net.output.bias).T
+
+    return mlp
 
 
 def _kernel_epilogue_mlp(net):
@@ -658,12 +703,19 @@ def sum_order(args) -> list[dict]:
     params = SubgameSolvingParams(num_iters=args.iters, max_depth=2,
                                   use_cfr=args.solver == "cfr",
                                   linear_update=True)
-    plain = grid2p.kernel_mlp(net, torch.bfloat16)
+    operands = torch.bfloat16 if args.operands == "bf16" else torch.float32
+    plain = grid2p.kernel_mlp(net, operands)
     outs = {}
     for name in args.orders:
         if name == "kernel_epilogue":
             outs[name] = grid2p.solve_loop(game, params, *inputs,
                                            _kernel_epilogue_mlp(net))
+            continue
+        if name == "f64_solve":
+            outs[name] = grid2p.Grid2Outputs(*(x.float() for x in (
+                grid2p.solve_loop(game, params, *inputs[:2],
+                                  inputs[2].double(), inputs[3],
+                                  _f64_mlp(net), dtype=torch.float64))))
             continue
 
         def mlp(x, matmul=ORDERS[name]):
@@ -683,7 +735,8 @@ def sum_order(args) -> list[dict]:
             (outs[a].snap1 - outs[b].snap1).abs().flatten(1).amax(1))
         rows.append(dict(game=args.game, solver=args.solver,
                          net=(args.fresh or "trained")
-                         + (" noln" if args.noln else ""), iters=args.iters,
+                         + (" noln" if args.noln else ""),
+                         operands=args.operands, iters=args.iters,
                          lanes=B, seed=args.seed, pair=f"{a}-{b}",
                          max_abs_diff=max(float((x - y).abs().max())
                                           for x, y in zip(outs[a], outs[b])),
@@ -787,6 +840,13 @@ PLAIN_LARGE_MODES = [((nd, nf), solver, mlp, (256, 2))
 PLAIN_WIDE_MODES = [((1, 4), solver, mlp, (512, 2))
                     for solver in ("cfr", "fp") for mlp in ("bf16", "f32")]
 PLAIN_WIDE_MODES += [((1, 4), "cfr", "bf16", (384, 2))]
+# plain-ms --hands128: the games of 65-128 hands with the fresh nets of
+# chip_smoke.py large-games, at the lanes its timed launches take there
+# (HANDS128_TIMED_LANES).
+PLAIN_HANDS128_MODES = [((nd, nf), solver, mlp, (256, 2))
+                        for nd, nf in ((4, 3), (2, 9), (2, 10))
+                        for solver in ("cfr", "fp") for mlp in ("bf16", "f32")]
+PLAIN_HANDS128_LANES = 264
 GAME_NETS = {**NETS, ((1, 5), "fp"): FP_NETS[1, 5],
              ((1, 6), "cfr"): "results/liars_sp/r5_1x6cfr/ckpt/epoch990.params",
              ((1, 6), "fp"): FP_NETS[1, 6]}
@@ -810,21 +870,24 @@ def plain_ms(args) -> list[dict]:
     dev = torch.device("cuda")
     card = card_name_and_power_limit()
     rows = []
+    lanes = PLAIN_HANDS128_LANES if args.hands128 else 1024
+    large = args.large or args.hands128
     for (nd, nf), solver, mlp, (width, layers) in (
             PLAIN_LARGE_MODES if args.large
+            else PLAIN_HANDS128_MODES if args.hands128
             else PLAIN_WIDE_MODES if args.wide else PLAIN_MODES):
         game = LiarsDice(nd, nf)
         A, H = game.num_actions, game.num_hands
         g = torch.Generator().manual_seed(SAME_BITS_SEED)
-        expo = -torch.log(torch.rand((1024, 2, H), generator=g))
-        inputs = [torch.randint(-1, A - 1, (1024,), generator=g),
-                  torch.randint(0, 2, (1024,), generator=g),
+        expo = -torch.log(torch.rand((lanes, 2, H), generator=g))
+        inputs = [torch.randint(-1, A - 1, (lanes,), generator=g),
+                  torch.randint(0, 2, (lanes,), generator=g),
                   expo / expo.sum(-1, keepdim=True),
-                  torch.randint(0, 1025, (1024,), generator=g)]
+                  torch.randint(0, 1025, (lanes,), generator=g)]
         net = None
         path = GAME_NETS[(nd, nf), solver] if (width, layers) == (256, 2) \
-            and not args.large else f"{width}x{layers} from a seed"
-        if args.large:
+            and not large else f"{width}x{layers} from a seed"
+        if large:
             seed = LARGE_NET_SEEDS[nd, nf]
             path = f"256x2 from seed {seed}, LayerNorm drawn"
             net = large_net(game, seed).to(dev)
@@ -852,7 +915,7 @@ def plain_ms(args) -> list[dict]:
         end.synchronize()
         rows.append(dict(card=card, game=f"{nd}x{nf}", solver=solver,
                          mlp=mlp, net=path if net is not None else None,
-                         lanes=1024, iters=1024))
+                         lanes=lanes, iters=1024))
         if args.kernel:
             rows[-1].update(kernel_ms=start.elapsed_time(end),
                             lane_block=grid2p.solve.last_lane_block,
@@ -910,6 +973,155 @@ def launches(args) -> list[dict]:
     return rows
 
 
+# bounds: the games of chip_smoke.py large-games, lanes and iterations.
+BOUNDS_GAMES = ("1x4", "2x3", "2x5", "3x3", "2x6", "3x4", "1x16", "4x3",
+                "2x9", "2x10")
+BOUNDS_LANES = 16
+BOUNDS_ITERS = 6
+# ... and, where the two-group calls once faulted, chip_smoke.py's
+# WORKSPACE_BITS launches of grid2_cfr_il2, at level 4: lanes and
+# iterations.
+BOUNDS_LONG = {"1x4": (256, 1024), "2x6": (256, 1024)}
+
+
+def bounds_game(args) -> list[dict]:
+    """One game of ``bounds`` (a process of its own): every case on the
+    index-checked build, against the unchecked build's bits."""
+    import torch
+
+    from rebel_tpu_torch.games.liars_dice import LiarsDice
+    from rebel_tpu_torch.mlp_breakdown import large_net
+    from rebel_tpu_torch.solving import grid2p
+    from rebel_tpu_torch.solving.params import SubgameSolvingParams
+
+    from rebel_tpu_torch.mlp_breakdown import LARGE_NET_SEEDS
+
+    nd, nf = map(int, args.game.split("x"))
+    game = LiarsDice(nd, nf)
+    dev = torch.device("cuda")
+    # chip_smoke.py's WORKSPACE_BITS net where the game has no seed of its
+    # own.
+    net = large_net(game, LARGE_NET_SEEDS.get((nd, nf), 361)).to(dev)
+
+    def inputs_of(B, T):
+        g = torch.Generator().manual_seed(400 + nd * 32 + nf)
+        expo = -torch.log(torch.rand((B, 2, game.num_hands), generator=g))
+        return [x.to(dev) for x in (
+            torch.randint(-1, game.num_actions - 1, (B,), generator=g),
+            torch.randint(0, 2, (B,), generator=g),
+            expo / expo.sum(-1, keepdim=True),
+            torch.randint(0, T + 1, (B,), generator=g))]
+
+    rows = []
+    if args.game in BOUNDS_LONG:
+        B, T = BOUNDS_LONG[args.game]
+        sub = SubgameSolvingParams(num_iters=T, max_depth=2,
+                                   linear_update=True, use_cfr=True)
+        args_ = (game, sub, *inputs_of(B, T), net, torch.bfloat16)
+        plain = grid2p.solve(*args_)
+        row = dict(game=args.game, solver="cfr", operands="bf16",
+                   interleave=2, level=grid2p.WS_BODY, lanes=B, iters=T)
+        print(json.dumps(dict(row, starting=True)), flush=True)
+        with grid2p._force_workspace(grid2p.WS_BODY), \
+                grid2p._index_checked():
+            out = grid2p.solve(*args_, interleave=2)
+            torch.cuda.synchronize()
+            row.update(lane_block=grid2p.solve.last_lane_block,
+                       layout=grid2p.solve.last_layout,
+                       result="no check fired",
+                       same_bits=all(torch.equal(x, y)
+                                     for x, y in zip(out, plain)))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    B, T = BOUNDS_LANES, BOUNDS_ITERS
+    inputs = inputs_of(B, T)
+    for solver in ("cfr", "fp"):
+        sub = SubgameSolvingParams(num_iters=T, max_depth=2,
+                                   linear_update=True,
+                                   use_cfr=solver == "cfr")
+        for dname, dtype in (("bf16", torch.bfloat16),
+                             ("f32", torch.float32)):
+            args_ = (game, sub, *inputs, net, dtype)
+            plain = grid2p.solve(*args_)  # the unchecked build's default
+            ils = (1, 2) if solver == "cfr" and game.num_hands <= \
+                grid2p.MAX_ROW else (1,)
+            for il in ils:
+                for level in range(1, grid2p.max_workspace(2, True, il) + 1):
+                    row = dict(game=args.game, solver=solver, operands=dname,
+                               interleave=il, level=level)
+                    with grid2p._force_workspace(level), \
+                            grid2p._index_checked():
+                        try:
+                            lb = grid2p.choose_lane_block(
+                                game, sub, net, dtype, B, il)
+                        except ValueError as e:
+                            row.update(result="does not fit", why=str(e))
+                            rows.append(row)
+                            print(json.dumps(row), flush=True)
+                            continue
+                        print(json.dumps(dict(row, starting=lb)), flush=True)
+                        out = grid2p.solve(*args_, interleave=il)
+                        torch.cuda.synchronize()
+                        row.update(lane_block=lb,
+                                   layout=grid2p.solve.last_layout)
+                    row.update(result="no check fired",
+                               same_bits=all(torch.equal(x, y) for x, y in
+                                             zip(out, plain)))
+                    rows.append(row)
+                    print(json.dumps(row), flush=True)
+    return rows
+
+
+def bounds(args) -> list[dict]:
+    """The index-checked build on every game (a process each), then the
+    stack frames of both builds' functions."""
+    import subprocess
+
+    from rebel_tpu_torch.kernels import build
+
+    rows = []
+    for game in args.games:
+        proc = subprocess.run(
+            [sys.executable, __file__, "bounds-game", "--game", game,
+             "--out", str(args.out)], capture_output=True, text=True)
+        out = proc.stdout + proc.stderr
+        got = [json.loads(x) for x in proc.stdout.splitlines()
+               if x.startswith("{") and "result" in x]
+        faults = [x for x in out.splitlines() if "index check" in x
+                  or "Error" in x or "error" in x]
+        print(f"bounds {game}: exit {proc.returncode}, {len(got)} cases, "
+              f"{sum(r['result'] == 'no check fired' for r in got)} ran, "
+              f"{sum(not r.get('same_bits', True) for r in got)} with other "
+              "bits", flush=True)
+        for x in faults[:40]:
+            print(f"    {x}", flush=True)
+        if proc.returncode:
+            started = [json.loads(x) for x in proc.stdout.splitlines()
+                       if '"starting"' in x]
+            print(f"    the last case started: {started[-1:]}", flush=True)
+        rows += got + [dict(game=game, exit=proc.returncode,
+                            faults=faults[:40])]
+    for label, defines in (("unchecked", ()),
+                           ("checked", (build.CHECK_INDEX,))):
+        path = build.library_path("grid2_cfr", defines, None if not defines
+                                  else build.CHECKED_UNITS)
+        log = path.with_suffix(".log")
+        text = log.read_text() if log.exists() else ""
+        fn = None
+        for line in text.splitlines():
+            if "Function properties for" in line:
+                fn = line.split("Function properties for")[-1].strip()
+            elif "bytes stack frame" in line and fn and (
+                    "ws_" in fn or "grid2_kernel" in fn):
+                frame = int(line.split("bytes stack frame")[0].split()[-1])
+                if frame or "ws_" in fn:
+                    rows.append(dict(build=label, function=fn,
+                                     properties=line.strip()))
+                    print(f"stack {label} {fn}: {line.strip()}", flush=True)
+    (args.out / "bounds.json").write_text(json.dumps(rows, indent=1))
+    return rows
+
+
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="study", required=True)
@@ -930,7 +1142,8 @@ def main(argv=None) -> list[dict]:
     o.add_argument("--out", type=pathlib.Path, required=True)
     o.add_argument("--game", default="2x3",
                    choices=["1x4"] + [f"{nd}x{nf}" for nd, nf in FP_NETS]
-                   + ["2x5", "3x3", "2x6", "3x4", "1x16"],
+                   + ["2x5", "3x3", "2x6", "3x4", "1x16", "4x3", "2x9",
+                      "2x10"],
                    help="the larger games (2x5 and on) with --fresh only")
     o.add_argument("--fresh", default=None, metavar="WIDTHxLAYERS",
                    help="a fresh net from --net-seed, as chip_smoke.py's "
@@ -939,7 +1152,7 @@ def main(argv=None) -> list[dict]:
     o.add_argument("--net-seed", type=int, default=0)
     o.add_argument("--noln", action="store_true",
                    help="the fresh net without LayerNorm")
-    o.add_argument("--orders", nargs="+", default=SUM_ORDERS,
+    o.add_argument("--orders", nargs="+", default=SUM_ORDERS[:-1],
                    choices=SUM_ORDERS,
                    help="the plain versions to run (f32 first: each other "
                         "is held to it)")
@@ -948,6 +1161,9 @@ def main(argv=None) -> list[dict]:
     o.add_argument("--lanes", type=int, default=256)
     o.add_argument("--iters", type=int, default=64)
     o.add_argument("--device", default="cpu")
+    o.add_argument("--operands", default="bf16", choices=["bf16", "f32"],
+                   help="the MLP's operands (f32: the orders f32, f64 and "
+                        "f64_solve only)")
     e = sub.add_parser("eval-sum-order")
     e.add_argument("--out", type=pathlib.Path, required=True)
     e.add_argument("--game", default="2x3", choices=["1x4", "2x3"])
@@ -971,12 +1187,22 @@ def main(argv=None) -> list[dict]:
     pm.add_argument("--large", action="store_true",
                     help="the games of up to 64 hands and actions "
                          "(PLAIN_LARGE_MODES) in place of PLAIN_MODES")
+    pm.add_argument("--hands128", action="store_true",
+                    help="the games of 65-128 hands (PLAIN_HANDS128_MODES, "
+                         "264 lanes) in place of PLAIN_MODES")
     pm.add_argument("--wide", action="store_true",
                     help="the nets of 384 and 512 on the wide units at 1x4f "
                          "(PLAIN_WIDE_MODES) in place of PLAIN_MODES")
     pm.add_argument("--kernel", action="store_true",
                     help="time the kernel (grid2p.solve) on the same inputs "
                          "in place of the plain version")
+    bd = sub.add_parser("bounds")
+    bd.add_argument("--out", type=pathlib.Path, required=True)
+    bd.add_argument("--games", nargs="+", default=list(BOUNDS_GAMES),
+                    choices=BOUNDS_GAMES)
+    bg = sub.add_parser("bounds-game")
+    bg.add_argument("--game", required=True, choices=BOUNDS_GAMES)
+    bg.add_argument("--out", type=pathlib.Path, required=True)
     bl = sub.add_parser("same-bits-launch")
     bl.add_argument("--root", type=pathlib.Path, required=True)
     bl.add_argument("--out", type=pathlib.Path, required=True)
@@ -994,7 +1220,8 @@ def main(argv=None) -> list[dict]:
              "sum-order": sum_order,
              "eval-sum-order": eval_sum_order,
              "same-bits": same_bits, "launches": launches,
-             "plain-ms": plain_ms}[args.study]
+             "plain-ms": plain_ms, "bounds": bounds,
+             "bounds-game": bounds_game}[args.study]
     return study(args)
 
 

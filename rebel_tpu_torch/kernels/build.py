@@ -9,7 +9,12 @@ the source and flags, and loads the shared library; ``defines`` adds a
 each with ``-DGRID2_UNIT=u`` (each unit holds one of its kernels'
 instantiations); the objects are linked into the one library.  A build
 for a few launches only (``units``: ``mlp_breakdown``'s variants) compiles
-the other units as stubs (``-DGRID2_STUB``) whose launches fail.  A plain C interface
+the other units as stubs (``-DGRID2_STUB``) whose launches fail.
+``load_checked(name)`` builds and loads the index-checked build
+(:data:`CHECK_INDEX`: every index into a part of the workspace or of
+shared memory checked, a trap where one leaves it) of the units
+:data:`CHECKED_UNITS`, into ``_build/checked/``, only when asked:
+nothing on the main path loads it.  A plain C interface
 keeps PyTorch's headers out of the compile: it takes seconds where a
 ``torch.utils.cpp_extension`` build takes minutes.  Nothing is compiled
 when this module is imported, and a missing ``nvcc`` or a failed compile
@@ -49,6 +54,12 @@ NVCC_FLAGS = [
 UNITS = {"grid2_cfr": 22}
 _NVCC_SLOTS = threading.BoundedSemaphore(os.cpu_count() or 8)
 
+# The index-checked build's define, and the units of grid2_cfr.cu it
+# compiles in full: the workspace instantiations (kinds 3-5); the others
+# are stubs.
+CHECK_INDEX = "GRID2_CHECK_INDEX"
+CHECKED_UNITS = tuple(range(9, 18))
+
 _loaded: dict[str, ctypes.CDLL] = {}
 # Seconds each build took to compile in this process (0.0: found built),
 # by name and defines ("grid2_cfr", "grid2_cfr BREAKDOWN=2").
@@ -81,7 +92,8 @@ def library_path(name: str, defines: tuple[str, ...] = (),
         + f" units={UNITS.get(name, 1)}".encode()
         + (b"" if units is None else f" only={sorted(units)}".encode())
     ).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    where = BUILD_DIR / "checked" if CHECK_INDEX in defines else BUILD_DIR
+    return where / f"lib{name}-{digest[:16]}.so"
 
 
 def build(name: str, defines: tuple[str, ...] = (),
@@ -97,7 +109,7 @@ def build(name: str, defines: tuple[str, ...] = (),
     if so.exists():
         build_seconds.setdefault(key, 0.0)
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     src = str(KERNEL_DIR / f"{name}.cu")
     nvcc = nvcc_path()
@@ -140,6 +152,17 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))
         _loaded[name] = lib
+    return lib
+
+
+def load_checked(name: str) -> ctypes.CDLL:
+    """The index-checked build of ``name`` (:data:`CHECK_INDEX`, the units
+    :data:`CHECKED_UNITS`), built on first use into ``_build/checked/``."""
+    key = f"{name} {CHECK_INDEX}"
+    lib = _loaded.get(key)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name, (CHECK_INDEX,), CHECKED_UNITS)))
+        _loaded[key] = lib
     return lib
 
 

@@ -161,7 +161,7 @@ LARGE_VARIANTS = {"whole": 0, **BODY_VARIANTS,
 # The seeds of the large games' fresh nets (chip_smoke.py's large-games
 # phase; chip_studies.py same-bits --large and plain-ms --large).
 LARGE_NET_SEEDS = {(2, 5): 300, (3, 3): 301, (2, 6): 302, (3, 4): 340,
-                   (1, 16): 341}
+                   (1, 16): 341, (4, 3): 342, (2, 9): 343, (2, 10): 344}
 
 
 def large_net(game: LiarsDice, seed: int | None = None, width: int = 256,

@@ -69,10 +69,12 @@ KERNEL_WIDTHS = (KERNEL_WIDTH, WIDE_WIDTH)
 WIDE_UNIT0 = 18
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 # The games the kernel takes: hands and actions of a row, which the body
-# deals to the lanes of a warp, two values a lane.  Rows wider than
-# NARROW_ROW and bf16 first layers deeper than NARROW_K0 run in the
-# kernel's workspace instantiations only.
+# deals to the lanes of a warp, two values a lane (MAX_ROW), or hands four
+# values a lane (MAX_HANDS: the reach rows of the one-group workspace
+# instantiations).  Rows wider than NARROW_ROW and bf16 first layers deeper
+# than NARROW_K0 run in the kernel's workspace instantiations only.
 MAX_ROW = 64
+MAX_HANDS = 128
 NARROW_ROW = 32
 NARROW_K0 = 64
 # The tensor-core MLP (bf16 operands): query rows of a warpgroup's tile,
@@ -89,6 +91,7 @@ WS_LEVEL1 = 2  # the level-1 arrays [A, H, A]
 WS_ROWS = 3    # the staging and leaf-value rows
 WS_BODY = 4    # the rest of the [H, H], [H, A] and [A, H] arrays
 WS_W0 = 5      # f32: the first layer streams through the f32 ring
+WS_HEAD = 5    # bf16: the head stays in device memory
 # The f32 MLP (FMA): query rows a warp owns, warps of a block, and the
 # ring a group of warps streams each hidden matrix through (stages of
 # RING_K of its rows).
@@ -102,9 +105,10 @@ RING_STAGES = 2
 RING16_K = 32
 RING16_STAGES = 4
 # The workspace instantiations' reach phase at rows wider than a warp:
-# items a warp takes at a time; and the words of the state their body
-# phases read (the kernel's WsBody), in shared memory where the one-group
-# launches call those phases.
+# items a warp takes at a time (one at rows over MAX_ROW hands,
+# :func:`reach_nb`); and the words of the state their body phases read
+# (the kernel's WsBody), in shared memory where the one-group launches
+# call those phases.
 REACH_NB = 4
 WS_BODY_WORDS = 60
 # The wide units' f32 ring stages (RING_K rows: the same 16 KB slabs), bf16
@@ -490,10 +494,12 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
     ``total``; the payoff table of the workspace's levels is the wrapper's
     own tensor, in no part of it; the level-1 arrays keep there only the
     :func:`level1_cells` that can be non-zero), and ``scratch``, each
-    warp's rows of :data:`REACH_NB` / ``groups`` reach items (three rows of ``H``
+    warp's rows of :func:`reach_nb` reach items (three rows of ``H``
     values, an odd number of words apart; the f32 MLP's activation rows
     hold them) and, in one group of warps, the :data:`WS_BODY_WORDS` of
-    the state the body's phases read, in shared memory."""
+    the state the body's phases read, in shared memory.  bf16 at
+    :data:`WS_HEAD` keeps the head in device memory (``mlp`` is then the
+    first layer, any resident hidden layers and the f32 parameters)."""
     A, H = game.num_actions, game.num_hands
     P = len(pseudo_leaf_pairs(game))
     words = lambda *ns: sum(_ceil(n, 4) for n in ns)
@@ -505,7 +511,7 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
     if ring and not (mma and n_layers > 1):
         raise ValueError("the ring streams the hidden layers of a bf16 net "
                          "of two or more")
-    if not 0 <= workspace <= max_workspace(n_layers, bf16):
+    if not 0 <= workspace <= max_workspace(n_layers, bf16, groups):
         raise ValueError(f"no workspace level {workspace} for this net")
     if wide and (groups != 1 or workspace):
         raise ValueError(f"width {n_hidden} runs in one group of warps "
@@ -514,9 +520,11 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
     mlp = 0
     if mma:
         resident = mlp_resident_bytes(game, n_hidden, n_layers, ring)
-        if wide:  # the f32 parameters stay in device memory
-            resident -= 4 * (3 * n_layers * n_hidden
-                             + _ceil(game.num_hands, 8))
+        hn = _ceil(game.num_hands, 8)
+        if workspace >= WS_HEAD:  # the head stays in device memory
+            resident -= 2 * hn * n_hidden
+        elif wide:  # the f32 parameters stay in device memory
+            resident -= 4 * (3 * n_layers * n_hidden + hn)
         mlp = words(resident // 4, 2)
     elif fma:
         mlp = words(0 if w0_ring else mlp32_words(game, n_hidden), 2)
@@ -559,10 +567,11 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
     if wide and mma:
         parts["tile"] = words(MMA_ROWS * n_hidden // 2, 2 * MMA_ROWS * 2)
     if workspace:  # the f32 MLP's rows hold the rows; one group of warps
-        # keeps a WsBody (its launches call the phases)
+        # keeps a WsBody (its launches call the phases; in the index-checked
+        # build both groups do)
         parts["scratch"] = (0 if fma else groups * words(
-            WARPS // groups * 3 * (REACH_NB // groups) * (H | 1))) \
-            + (WS_BODY_WORDS if groups == 1 else 0)
+            WARPS // groups * 3 * reach_nb(H, groups) * (H | 1))) \
+            + (groups * WS_BODY_WORDS if groups == 1 or _CHECK_INDEX else 0)
     parts["total"] = sum(parts.values())
     if workspace:
         parts["workspace"] = groups * ws_words
@@ -576,10 +585,22 @@ def level1_cells(num_actions: int) -> int:
     return num_actions * (num_actions - 1) // 2
 
 
-def max_workspace(n_layers: int, bf16: bool) -> int:
-    """The deepest workspace level a launch takes: :data:`WS_W0` for the
-    f32 MLP (its first layer may stream), else :data:`WS_BODY`."""
-    return WS_W0 if n_layers > 0 and not bf16 else WS_BODY
+def max_workspace(n_layers: int, bf16: bool, groups: int = 1) -> int:
+    """The deepest workspace level a launch takes: with a net
+    :data:`WS_W0` (f32: its first layer may stream) or, in one group of
+    warps, :data:`WS_HEAD` (bf16: its head may stay in device memory), both
+    5, else :data:`WS_BODY`."""
+    if n_layers > 0 and not (bf16 and groups == 2):
+        return WS_W0
+    return WS_BODY
+
+
+def reach_nb(hands: int, groups: int = 1) -> int:
+    """Reach items a warp of the workspace instantiations takes at a
+    time at rows wider than a warp (the kernel's ``reach_nb``):
+    :data:`REACH_NB` / ``groups``, and one at rows over :data:`MAX_ROW`
+    hands, whose lanes hold four values each."""
+    return 1 if hands > MAX_ROW else REACH_NB // groups
 
 
 def default_mlp_chunks(n_pairs: int, lane_block: int, groups: int,
@@ -631,13 +652,15 @@ def deal_rows(rows: int, warpgroups: int = WARPGROUPS) -> list[list[tuple]]:
 
 def deal_wide(n: int) -> list[tuple[int, int, int]]:
     """How the iteration body deals a row of ``n`` hands or actions (at
-    most :data:`MAX_ROW`) to one warp where it is wider than 32 (the reach
-    items, the root rows), in the order its sums visit the values:
-    ``(value, lane, register)``, lane ``l`` holding values ``l`` (register
-    0) and ``l + 32`` (register 1), the sum over the first 32 values from
-    register 0, then over the rest from register 1."""
-    if not 1 <= n <= MAX_ROW:
-        raise ValueError(f"a warp takes rows of 1-{MAX_ROW} values, not {n}")
+    most :data:`MAX_HANDS`; actions at most :data:`MAX_ROW`) to one warp
+    where it is wider than 32 (the reach items, the root rows), in the
+    order its sums visit the values: ``(value, lane, register)``, lane
+    ``l`` holding values ``l + 32 j`` in register ``j`` (``j <
+    ceil(n / 32)``), the sum over register 0's 32 values, then over
+    register 1's, and so on."""
+    if not 1 <= n <= MAX_HANDS:
+        raise ValueError(f"a warp takes rows of 1-{MAX_HANDS} values, "
+                         f"not {n}")
     return [(v, v % 32, v // 32) for v in range(n)]
 
 
@@ -655,25 +678,27 @@ def deal_reach(n_items: int, hands: int, groups: int = 1) -> list:
     """How the workspace instantiations' reach phase deals a group's
     ``n_items`` items of ``hands`` hands to its warps (:data:`WARPS` /
     ``groups``) at rows wider than a warp: per warp, its batches of ``nb =
-    REACH_NB / groups`` items (``e0 = nb (warp + warps n)``), each
+    reach_nb(hands, groups)`` items (``e0 = nb (warp + warps n)``), each
     ``(items, values, sums)``: ``values`` the ``(item, hand, lane,
-    register)`` each lane computes (lane ``l`` hands ``l`` and ``l +
-    32``), ``sums`` the ``(lane, item, row, hands)`` of each summing lane
-    (lane ``3 b + w`` row ``w`` of the batch's item ``b``, over ``hands``
-    in the order it adds them).  Rows of at most :data:`NARROW_ROW` hands
-    take the shared-memory layout's loops."""
-    if not NARROW_ROW < hands <= MAX_ROW:
-        raise ValueError(f"the batches take rows of {NARROW_ROW + 1}-"
-                         f"{MAX_ROW} hands, not {hands}")
-    warps, nb = WARPS // groups, REACH_NB // groups
+    register)`` each lane computes (lane ``l`` hands ``l + 32 j``, ``j <
+    ceil(hands / 32)``), ``sums`` the ``(lane, item, row, hands)`` of each
+    summing lane (lane ``3 b + w`` row ``w`` of the batch's item ``b``,
+    over ``hands`` in the order it adds them).  Rows of at most
+    :data:`NARROW_ROW` hands take the shared-memory layout's loops; rows
+    over :data:`MAX_ROW` hands one group of warps only."""
+    top = MAX_HANDS if groups == 1 else MAX_ROW
+    if not NARROW_ROW < hands <= top:
+        raise ValueError(f"the batches of {groups} group(s) take rows of "
+                         f"{NARROW_ROW + 1}-{top} hands, not {hands}")
+    warps, nb = WARPS // groups, reach_nb(hands, groups)
     out = []
     for w in range(warps):
         batches = []
         for e0 in range(w * nb, n_items, warps * nb):
             items = [e for e in range(e0, e0 + nb) if e < n_items]
             values = [(e, lane + 32 * j, lane, j) for e in items
-                      for j in range(2) for lane in range(32)
-                      if lane + 32 * j < hands]
+                      for j in range(_ceil(hands, 32) // 32)
+                      for lane in range(32) if lane + 32 * j < hands]
             sums = [(lane, e0 + lane // 3, lane % 3, list(range(hands)))
                     for lane in range(3 * nb) if e0 + lane // 3 < n_items]
             batches.append((items, values, sums))
@@ -841,8 +866,9 @@ def kernel_plan(game: LiarsDice, params: SubgameSolvingParams,
     arrays to the device workspace, level by level, resident weights
     before the ring at each level, until the rest fits.  Raises
     ``ValueError`` on an option, a game or a net the kernel does not take
-    (over :data:`MAX_ROW` hands or actions, queries over :data:`MAX_K0`
-    values, a width over 256) and on a layout that does not fit even so
+    (over :data:`MAX_HANDS` hands or :data:`MAX_ROW` actions, queries over
+    :data:`MAX_K0` values, ``interleave=2`` at over :data:`MAX_ROW` hands,
+    a width over 512) and on a layout that does not fit even so
     (never shrinks the lane block, never falls back).  A net of width
     257-512 runs at :data:`WIDE_WIDTH`, its bf16 hidden layers on the ring,
     without the workspace and in one group of warps: a width over 512, such
@@ -860,6 +886,10 @@ _FORCED_WORKSPACE: int | None = None
 # Set by _force_width: every net runs at least at this padded width.  For
 # the checks that hold the wide units to the others on narrower nets.
 _FORCED_WIDTH: int | None = None
+# Set by _index_checked: launches run the index-checked build of the kernel
+# (kernels/build.py CHECK_INDEX), whose two-group workspace instantiations
+# keep a WsBody a group in shared memory too.
+_CHECK_INDEX = False
 
 
 @contextlib.contextmanager
@@ -890,6 +920,20 @@ def _force_width(width: int):
         yield
     finally:
         _FORCED_WIDTH = before
+
+
+@contextlib.contextmanager
+def _index_checked():
+    """``with grid2p._index_checked():`` every launch in the block runs the
+    index-checked build of the workspace instantiations (the others are
+    stubs whose launches fail), which traps on an index outside its part
+    (``chip_studies.py bounds``)."""
+    global _CHECK_INDEX
+    before, _CHECK_INDEX = _CHECK_INDEX, True
+    try:
+        yield
+    finally:
+        _CHECK_INDEX = before
 
 
 def _n_layers(net) -> int:
@@ -973,14 +1017,17 @@ def _layouts(game, params, net, net_compute_dtype, interleave):
     if _width(net) > KERNEL_WIDTH:
         _check_wide(game, params, net, net_compute_dtype, interleave)
         return [(bf16 and n_layers > 1, 0)]
+    groups = effective_interleave(params, net is not None, interleave, None)
     rings = (False, True) if bf16 and n_layers > 1 else (False,)
     if _FORCED_WORKSPACE is not None:
-        level = max(1, min(_FORCED_WORKSPACE, max_workspace(n_layers, bf16)))
+        deepest = max_workspace(n_layers, bf16, groups)
+        level = max(1, min(_FORCED_WORKSPACE, deepest))
         return [(ring, level) for ring in rings]
     out = [] if _wide(game, net, bf16) else [(ring, 0) for ring in rings]
     if needs_workspace(game, params, net, net_compute_dtype, interleave):
         out += [(ring, level)
-                for level in range(1, max_workspace(n_layers, bf16) + 1)
+                for level in range(1, max_workspace(n_layers, bf16, groups)
+                                   + 1)
                 for ring in rings]
     return out
 
@@ -996,11 +1043,25 @@ def _plan(game, params, net, net_compute_dtype, batch, lane_block,
         raise ValueError(f"batch {batch} is not a multiple of lane_block "
                          f"{lane_block}")
     H, A = game.num_hands, game.num_actions
-    if H > MAX_ROW or A > MAX_ROW:
+    if H > MAX_HANDS:
         raise ValueError(
-            f"the kernel deals a row's hands or actions to the lanes of a "
-            f"warp, two a lane: it takes at most {MAX_ROW} of each, not {H} "
-            f"hands and {A} actions")
+            f"the kernel deals a row's hands to the lanes of a warp, at "
+            f"most four a lane: it takes at most {MAX_HANDS} hands, not {H} "
+            f"(ROADMAP Queue 6 item 1)")
+    if A > MAX_ROW:
+        raise ValueError(
+            f"the kernel deals a row's actions to the lanes of a warp, two "
+            f"a lane: it takes at most {MAX_ROW} actions, not {A} (ROADMAP "
+            f"Queue 6 item 1)")
+    if _ceil(game.query_size, 16) > MAX_K0:
+        raise ValueError(
+            f"the kernel's MLP takes queries of up to {MAX_K0} values, not "
+            f"{game.query_size} (ROADMAP Queue 6 item 1)")
+    if H > MAX_ROW and groups == 2:
+        raise ValueError(
+            f"interleave=2 takes games of at most {MAX_ROW} hands, not {H}: "
+            f"rows over {MAX_ROW} hands run in one group of warps (ROADMAP "
+            f"Queue 6 item 8)")
     bf16 = net_compute_dtype == torch.bfloat16
     n_layers = 0
     width = _width(net)
@@ -1009,10 +1070,6 @@ def _plan(game, params, net, net_compute_dtype, batch, lane_block,
         if n_layers < 1:
             raise ValueError("the kernel takes nets of one hidden layer "
                              "or more")
-        if _ceil(game.query_size, 16) > MAX_K0:
-            raise ValueError(
-                f"the kernel's MLP takes queries of up to {MAX_K0} values, "
-                f"not {game.query_size}")
     mma = bf16 and net is not None
     if mlp_chunks is None:
         mlp_chunks = default_mlp_chunks(len(pseudo_leaf_pairs(game)),
@@ -1172,7 +1229,8 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     c_ints = (ctypes.c_int * len(ints))(*ints)
     from rebel_tpu_torch.kernels import build
 
-    lib = build.load("grid2_cfr")
+    lib = (build.load_checked("grid2_cfr") if _CHECK_INDEX
+           else build.load("grid2_cfr"))
     _declare(lib)
     smem = lib.grid2_cfr_smem_bytes(c_ints)
     ws_bytes = lib.grid2_cfr_workspace_bytes(c_ints)

@@ -83,15 +83,16 @@ def test_one_short_multiplier_misdeals_a_lane_edge():
 
 
 def test_plan_refuses_rows_wider_than_a_warp():
-    """Rows wider than a warp are dealt two values a lane, up to 64:
-    2x6f (36 hands) launches, 4x3f (81 hands) does not, whatever the lane
-    block."""
+    """Rows wider than a warp are dealt two values a lane up to 64 hands,
+    four up to 128: 2x6f (36 hands) and 4x3f (81) launch, 5x3f (243) does
+    not, whatever the lane block."""
     sub = SubgameSolvingParams(num_iters=4, max_depth=2, use_cfr=True)
-    plan = grid2p.kernel_plan(LiarsDice(2, 6), sub, None, torch.float32, 8, 1)
-    assert plan.smem <= grid2p.SMEM_LIMIT
+    for game in (LiarsDice(2, 6), LiarsDice(4, 3)):
+        plan = grid2p.kernel_plan(game, sub, None, torch.float32, 8, 1)
+        assert plan.smem <= grid2p.SMEM_LIMIT
     for lane_block in (1, 8):
-        with pytest.raises(ValueError, match="at most 64"):
-            grid2p.kernel_plan(LiarsDice(4, 3), sub, None, torch.float32, 8,
+        with pytest.raises(ValueError, match="at most 128 hands, not 243"):
+            grid2p.kernel_plan(LiarsDice(5, 3), sub, None, torch.float32, 8,
                                lane_block)
 
 

@@ -302,8 +302,16 @@ def test_workspace_levels_move_state_out_of_shared_memory():
            for level in (4, 5)]
     assert f32[0]["mlp"] - f32[1]["mlp"] == 4 * 100 * 256
     assert f32[0]["workspace"] == f32[1]["workspace"]
-    with pytest.raises(ValueError, match="workspace level 5"):
-        grid2p.smem_layout(game, 1, True, 256, 2, True, workspace=5)
+    # bf16: level 5 keeps the head [40, 256] in device memory; no launch
+    # takes a level 6.
+    bf16 = [grid2p.smem_layout(game, 1, True, 256, 2, True, ring=True,
+                               workspace=level) for level in (4, 5)]
+    assert bf16[0]["mlp"] - bf16[1]["mlp"] == 2 * 40 * 256
+    assert bf16[0]["workspace"] == bf16[1]["workspace"]
+    for dtype_bf16 in (True, False):
+        with pytest.raises(ValueError, match="workspace level 6"):
+            grid2p.smem_layout(game, 1, True, 256, 2, dtype_bf16,
+                               workspace=6)
 
 
 def test_forced_workspace_plans_every_launch():
@@ -322,15 +330,16 @@ def test_forced_workspace_plans_every_launch():
         nonet = grid2p.kernel_plan(game, _params(True), None, torch.float32,
                                    1024, 8)
     assert (bf16.layout, f32.layout, nonet.layout) == (
-        "resident+workspace4", "resident+workspace5", "resident+workspace4")
+        "resident+workspace5", "resident+workspace5", "resident+workspace4")
     assert bf16.smem < before.smem and bf16.ws_bytes > 0
     assert grid2p.kernel_plan(game, _params(True), net, torch.bfloat16,
                               1024, 8) == before
 
 
 @pytest.mark.parametrize("dice,faces,match", [
-    (4, 3, "at most 64 of each, not 81 hands"),
-    (1, 32, "at most 64 of each, not 32 hands and 65 actions")])
+    (5, 3, "at most 128 hands, not 243"),
+    (3, 5, "queries of up to 256 values, not 283"),
+    (1, 32, "at most 64 actions, not 65")])
 def test_games_over_the_limits_are_refused(dice, faces, match):
     """Refused by ``kernel_plan`` and ``choose_lane_block`` for every lane
     block, bf16 and f32, before anything is built or launched."""
@@ -407,16 +416,17 @@ def test_work_split_at_large_games(dice, faces):
 
 @pytest.mark.parametrize("n", [1, 9, 32, 33, 36, 64])
 def test_wide_rows_are_dealt_once_in_order(n):
-    """``deal_wide``: a row of n values, lane l holding values l and l + 32;
-    the sums visit every value once, in index order, and rows of 32 or
-    fewer take one register a lane."""
+    """``deal_wide``: a row of n values, lane l holding values l and l + 32
+    (up to 64; four registers take rows up to 128); the sums visit every
+    value once, in index order, and rows of 32 or fewer take one register
+    a lane."""
     order = grid2p.deal_wide(n)
     assert [v for v, _, _ in order] == list(range(n))
     assert all(v == lane + 32 * j for v, lane, j in order)
     assert {lane for _, lane, _ in order} <= set(range(32))
     assert max(j for _, _, j in order) == (1 if n > 32 else 0)
-    with pytest.raises(ValueError, match="64"):
-        grid2p.deal_wide(65)
+    with pytest.raises(ValueError, match="128"):
+        grid2p.deal_wide(129)
 
 
 @pytest.mark.parametrize("dice,faces,dtype,wide", [
@@ -533,7 +543,7 @@ def test_reach_items_are_dealt_once_with_sums_in_order(items, hands, groups):
     assert sorted(seen) == [(e, h) for e in range(items)
                             for h in range(hands)]
     assert summed == {(e, w): 1 for e in range(items) for w in range(3)}
-    with pytest.raises(ValueError, match="33-64 hands, not 32"):
+    with pytest.raises(ValueError, match="33-128 hands, not 32"):
         grid2p.deal_reach(items, 32)
 
 
