@@ -151,7 +151,9 @@ an H100, ``sm_90a``).  It
    1024 lanes x 1024 iterations beside its bound; the boundary games 3x4f
    (64 hands) and 1x16f (33 actions) on 64 lanes; the games of 65-128
    hands, 4x3f, 2x9f and 2x10f (HANDS128_GAMES, on 256 lanes, timed at
-   264 lanes); and the workspace forced to its deepest level held to the
+   264 lanes), and f32 CFR at 2x9f and 4x3f on the 128 lanes where it
+   first ran, held to the whole solve in f64 (HANDS128_EXACT); and the
+   workspace forced to its deepest level held to the
    default layout bit for bit over 1024 iterations (WORKSPACE_BITS: 1x4f
    and 2x3f, CFR and FP, bf16 and f32, 2x6f and 4x3f, and
    ``grid2_cfr_il2`` on the workspace at 1x4f and 2x6f);
@@ -583,18 +585,31 @@ LARGE_LANES = 256
 # of 1024 lanes would take seconds (bf16) to tens of seconds (f32).
 HANDS128_GAMES = ((4, 3), (2, 9), (2, 10))
 HANDS128_TIMED_LANES = 264
+# f32 CFR over CHECK_ITERS iterations on the inputs where these games
+# first ran, HANDS128_EXACT_LANES lanes from a seed: there the kernel read
+# its plain version beyond TOL_F32 (2x9f 2.479e-4, 4x3f 4.184e-4), and the
+# plain version reads the whole solve in f64 further still than the kernel
+# does (2.617e-4 against 9.051e-5; 3.253e-4 against 1.516e-4;
+# `chip_studies.py sum-order --operands f32 --orders f32 f64_solve kernel
+# --device cuda`, PERF.md).  So on these inputs the kernel is held to the
+# f64 solve: within TOL_F32 of it, or no further from it than the plain f32
+# version is.  ((game, seed))
+HANDS128_EXACT = (((2, 9), 381), ((4, 3), 380))
+HANDS128_EXACT_LANES = 128
 LARGE_CONTROL_LANES = 16
 BOUNDARY_GAMES = ((3, 4), (1, 16))
 BOUNDARY_LANES = 64
 # (solver, game) where two correct plain versions (f32 sums, and exact
-# or the tensor cores' chained sums) already read the phase's fresh net
-# over CHECK_ITERS iterations in bf16 apart by more than the limit on its
-# lanes (`chip_studies.py sum-order --fresh`, PERF.md): CFR's max_abs_diff
-# 1.061e-03 at 2x5f, 1.844e-03 at 2x6f, 1.475e-03 at 3x4f, 1.251e-03
-# (f32 against f64 sums) and 1.243e-03 (against the tensor cores' chained
-# sums) at 2x9f against TOL_BF16 (3x3f 8.99e-04, 1x16f 1.3e-05; 4x3f
-# 1.040e-03, where the kernel reads 7.6e-04 and is held); FP's flip lanes
-# 3.1% at 3x4f against FP_TIE_SHARE.  There the kernel is held over
+# or the tensor cores' chained sums, or the f32 rounding of the kernel's
+# epilogue) already read the phase's fresh net over CHECK_ITERS
+# iterations in bf16 apart by more than the limit on its lanes
+# (`chip_studies.py sum-order --fresh`, PERF.md): CFR's max_abs_diff
+# 1.061e-03 at 2x5f, 1.844e-03 at 2x6f, 1.475e-03 at 3x4f, and at 2x9f
+# 1.251e-03 (f32 against f64 sums), 1.247e-03 (against the tensor cores'
+# chained sums) and 1.743e-03 (against the kernel's epilogue rounding, on
+# the lane where the kernel reads 1.743e-03 too) against TOL_BF16 (3x3f
+# 8.99e-04, 1x16f 1.3e-05; 4x3f 1.049e-03, where the kernel reads 7.6e-04
+# and is held); FP's flip lanes 3.1% at 3x4f against FP_TIE_SHARE.  There the kernel is held over
 # LONG_ITERS by the statistics against a control only.
 BF16_LONG_ONLY = {("cfr", (2, 5)), ("cfr", (2, 6)), ("cfr", (3, 4)),
                   ("fp", (3, 4)), ("cfr", (2, 9))}
@@ -2872,6 +2887,8 @@ def main() -> int:
             if not finite(out):
                 failures.append(f"large-games {name}: non-finite outputs at "
                                 f"B={timed}")
+        for (nd, nf), seed in HANDS128_EXACT:
+            exact_check(LiarsDice(nd, nf), seed)
         for k, (nd, nf) in enumerate(BOUNDARY_GAMES):
             g_ = LiarsDice(nd, nf)
             net = large_net(g_, 340 + k)
@@ -2886,6 +2903,35 @@ def main() -> int:
                     hold_large(g_, solver, dtype, net, BOUNDARY_LANES,
                                (350 + k, 350 + k), long=False)
         workspace_bits()
+
+    def exact_check(g_, seed) -> None:
+        """f32 CFR at ``g_`` on HANDS128_EXACT_LANES lanes from ``seed``
+        over CHECK_ITERS iterations: the kernel against the whole solve in
+        f64, within TOL_F32 or the plain f32 version's own distance to it,
+        whichever is larger."""
+        import chip_studies
+        from rebel_tpu_torch.mlp_breakdown import LARGE_NET_SEEDS
+
+        net = large_net(g_, LARGE_NET_SEEDS[g_.num_dice, g_.num_faces])
+        inputs = random_inputs(HANDS128_EXACT_LANES, CHECK_ITERS, seed, g_)
+        args = (g_, cfr(CHECK_ITERS), *inputs, net, torch.float32)
+        out = grid2p.solve(*args)
+        ref = grid2p.solve_reference(*args)
+        exact = grid2p.solve_loop(
+            g_, cfr(CHECK_ITERS), *inputs[:2], inputs[2].double(), inputs[3],
+            chip_studies._f64_mlp(net), dtype=torch.float64)
+        got, plain = max_diff(out, exact), max_diff(ref, exact)
+        lim = max(TOL_F32, plain)
+        ok = finite(out) and got <= lim
+        print(f"check large-games {g_.num_dice}x{g_.num_faces} cfr f32 "
+              f"against the f64 solve: B={HANDS128_EXACT_LANES} "
+              f"iters={CHECK_ITERS} seed {seed}: max_abs_diff={got:.3e} "
+              f"(plain f32 {plain:.3e}; kernel against plain f32 "
+              f"{max_diff(out, ref):.3e}) limit={lim:.3e} "
+              f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            failures.append(f"kernel check large-games {g_.num_dice}x"
+                            f"{g_.num_faces} cfr f32 against the f64 solve")
 
     def workspace_bits() -> None:
         """WORKSPACE_BITS: the launch with the workspace forced to its

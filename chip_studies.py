@@ -36,11 +36,14 @@ the fresh net of ``chip_smoke.py``'s ``widths`` phase from
 and ``chip_smoke.py``'s ``games`` inputs (``--lanes`` lanes from
 ``--seed``, ``--iters`` iterations), with the MLP's sums taken in each
 order of :data:`ORDERS`, and with the f32 rounding of the kernel's
-epilogue (:func:`_kernel_epilogue_mlp`; ``--orders`` picks among them),
-each held to the plain version's own: rvm's mean, max, worst lane and
-0.9 quantile over lanes, and ``snap_lanes``, the share of lanes whose
-snapshots move by more than :data:`LANE_TOL`; rows in
-``DIR/sum_order.json``.
+epilogue (:func:`_kernel_epilogue_mlp`; ``--orders`` picks among them;
+``kernel``, with ``--device cuda``: the fused kernel itself),
+each held to the plain version's own and to the exact one (``f64_solve``,
+else ``f64``), and the kernel to each of the others: rvm's mean, max, worst lane and
+0.9 quantile over lanes, ``snap_lanes``, the share of lanes whose
+snapshots move by more than :data:`LANE_TOL`, and the median and 0.9
+quantile over lanes of each lane's largest diff (every lane's in the
+file, ``lane_max``); rows in ``DIR/sum_order.json``.
 ``eval-sum-order`` (the card by default): the plain version's
 ``--repeats``-repeat sampled evaluation over ``--iters`` subgame
 iterations at ``--game`` with bf16 operands, with the MLP's sums in f32
@@ -188,8 +191,8 @@ def _products(matmul):
 ORDERS = {"f32": None, "f64": _f64, "tc_chained": _tc_chained,
           "tc_steps": _tc_steps}
 # sum-order's plain versions: ORDERS, the kernel's epilogue rounding, and
-# (f32 operands) the whole solve in f64.
-SUM_ORDERS = [*ORDERS, "kernel_epilogue", "f64_solve"]
+# (f32 operands) the whole solve in f64; and (on the card) the kernel.
+SUM_ORDERS = [*ORDERS, "kernel_epilogue", "f64_solve", "kernel"]
 # chip_smoke.py's LANE_TOL: a lane whose snapshots differ anywhere by more
 # is counted in sum-order's ``snap_lanes``, as the check counts it.
 LANE_TOL = 0.05
@@ -711,6 +714,9 @@ def sum_order(args) -> list[dict]:
             outs[name] = grid2p.solve_loop(game, params, *inputs,
                                            _kernel_epilogue_mlp(net))
             continue
+        if name == "kernel":
+            outs[name] = grid2p.solve(game, params, *inputs, net, operands)
+            continue
         if name == "f64_solve":
             outs[name] = grid2p.Grid2Outputs(*(x.float() for x in (
                 grid2p.solve_loop(game, params, *inputs[:2],
@@ -727,12 +733,20 @@ def sum_order(args) -> list[dict]:
     pairs = [("f32", o) for o in outs if o != "f32"]
     if "tc_chained" in outs and "tc_steps" in outs:
         pairs.append(("tc_chained", "tc_steps"))
+    # Each version also held to the exact one: the whole solve in f64 (f32
+    # operands) or the MLP's sums exact (bf16).
+    exact = next((o for o in ("f64_solve", "f64") if o in outs), None)
+    pairs += [(exact, o) for o in outs if exact and o not in ("f32", exact)]
+    # ... and the kernel to each of the other plain versions.
+    pairs += [(o, "kernel") for o in outs if "kernel" in outs
+              and o not in ("f32", exact, "kernel")]
     rows = []
     for a, b in pairs:
         rvm = (outs[a].rvm - outs[b].rvm).abs().flatten(1).amax(1)
         snap = torch.maximum(
             (outs[a].snap0 - outs[b].snap0).abs().flatten(1).amax(1),
             (outs[a].snap1 - outs[b].snap1).abs().flatten(1).amax(1))
+        lane = torch.maximum(rvm, snap)  # each lane's largest diff
         rows.append(dict(game=args.game, solver=args.solver,
                          net=(args.fresh or "trained")
                          + (" noln" if args.noln else ""),
@@ -746,8 +760,12 @@ def sum_order(args) -> list[dict]:
                          worst_lane=int(rvm.argmax()),
                          lanes_rvm_over_1e3=int((rvm > 1e-3).sum()),
                          lane_rvm_q90=float(rvm.quantile(0.9)),
-                         snap_lanes=float((snap > LANE_TOL).float().mean())))
+                         snap_lanes=float((snap > LANE_TOL).float().mean()),
+                         lane_q50=float(lane.quantile(0.5)),
+                         lane_q90=float(lane.quantile(0.9)),
+                         worst_lane_all=int(lane.argmax())))
         print(json.dumps(rows[-1]), flush=True)
+        rows[-1]["lane_max"] = lane.cpu().tolist()
     (args.out / "sum_order.json").write_text(json.dumps(rows, indent=1))
     return rows
 
@@ -1022,9 +1040,8 @@ def bounds_game(args) -> list[dict]:
         row = dict(game=args.game, solver="cfr", operands="bf16",
                    interleave=2, level=grid2p.WS_BODY, lanes=B, iters=T)
         print(json.dumps(dict(row, starting=True)), flush=True)
-        with grid2p._force_workspace(grid2p.WS_BODY), \
-                grid2p._index_checked():
-            out = grid2p.solve(*args_, interleave=2)
+        with grid2p._force_workspace(grid2p.WS_BODY):
+            out = grid2p.solve(*args_, interleave=2, index_checked=True)
             torch.cuda.synchronize()
             row.update(lane_block=grid2p.solve.last_lane_block,
                        layout=grid2p.solve.last_layout,
@@ -1045,22 +1062,24 @@ def bounds_game(args) -> list[dict]:
             plain = grid2p.solve(*args_)  # the unchecked build's default
             ils = (1, 2) if solver == "cfr" and game.num_hands <= \
                 grid2p.MAX_ROW else (1,)
+            bf16 = dtype == torch.bfloat16
             for il in ils:
-                for level in range(1, grid2p.max_workspace(2, True, il) + 1):
+                for level in range(1, grid2p.max_workspace(2, bf16, il) + 1):
                     row = dict(game=args.game, solver=solver, operands=dname,
                                interleave=il, level=level)
-                    with grid2p._force_workspace(level), \
-                            grid2p._index_checked():
+                    with grid2p._force_workspace(level):
                         try:
                             lb = grid2p.choose_lane_block(
                                 game, sub, net, dtype, B, il)
+                            print(json.dumps(dict(row, starting=lb)),
+                                  flush=True)
+                            out = grid2p.solve(*args_, interleave=il,
+                                               index_checked=True)
                         except ValueError as e:
                             row.update(result="does not fit", why=str(e))
                             rows.append(row)
                             print(json.dumps(row), flush=True)
                             continue
-                        print(json.dumps(dict(row, starting=lb)), flush=True)
-                        out = grid2p.solve(*args_, interleave=il)
                         torch.cuda.synchronize()
                         row.update(lane_block=lb,
                                    layout=grid2p.solve.last_layout)
@@ -1152,7 +1171,7 @@ def main(argv=None) -> list[dict]:
     o.add_argument("--net-seed", type=int, default=0)
     o.add_argument("--noln", action="store_true",
                    help="the fresh net without LayerNorm")
-    o.add_argument("--orders", nargs="+", default=SUM_ORDERS[:-1],
+    o.add_argument("--orders", nargs="+", default=SUM_ORDERS[:-2],
                    choices=SUM_ORDERS,
                    help="the plain versions to run (f32 first: each other "
                         "is held to it)")
@@ -1162,8 +1181,8 @@ def main(argv=None) -> list[dict]:
     o.add_argument("--iters", type=int, default=64)
     o.add_argument("--device", default="cpu")
     o.add_argument("--operands", default="bf16", choices=["bf16", "f32"],
-                   help="the MLP's operands (f32: the orders f32, f64 and "
-                        "f64_solve only)")
+                   help="the MLP's operands (f32: the orders f32, f64, "
+                        "f64_solve and kernel only)")
     e = sub.add_parser("eval-sum-order")
     e.add_argument("--out", type=pathlib.Path, required=True)
     e.add_argument("--game", default="2x3", choices=["1x4", "2x3"])

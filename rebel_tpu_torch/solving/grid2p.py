@@ -567,11 +567,12 @@ def smem_layout(game: LiarsDice, lane_block: int, use_cfr: bool,
     if wide and mma:
         parts["tile"] = words(MMA_ROWS * n_hidden // 2, 2 * MMA_ROWS * 2)
     if workspace:  # the f32 MLP's rows hold the rows; one group of warps
-        # keeps a WsBody (its launches call the phases; in the index-checked
-        # build both groups do)
+        # keeps a WsBody (its launches call the phases; the index-checked
+        # build's two-group units do too, and keep one a group: solve's
+        # index_checked takes that layout from the C side)
         parts["scratch"] = (0 if fma else groups * words(
             WARPS // groups * 3 * reach_nb(H, groups) * (H | 1))) \
-            + (groups * WS_BODY_WORDS if groups == 1 or _CHECK_INDEX else 0)
+            + (WS_BODY_WORDS if groups == 1 else 0)
     parts["total"] = sum(parts.values())
     if workspace:
         parts["workspace"] = groups * ws_words
@@ -886,10 +887,6 @@ _FORCED_WORKSPACE: int | None = None
 # Set by _force_width: every net runs at least at this padded width.  For
 # the checks that hold the wide units to the others on narrower nets.
 _FORCED_WIDTH: int | None = None
-# Set by _index_checked: launches run the index-checked build of the kernel
-# (kernels/build.py CHECK_INDEX), whose two-group workspace instantiations
-# keep a WsBody a group in shared memory too.
-_CHECK_INDEX = False
 
 
 @contextlib.contextmanager
@@ -920,20 +917,6 @@ def _force_width(width: int):
         yield
     finally:
         _FORCED_WIDTH = before
-
-
-@contextlib.contextmanager
-def _index_checked():
-    """``with grid2p._index_checked():`` every launch in the block runs the
-    index-checked build of the workspace instantiations (the others are
-    stubs whose launches fail), which traps on an index outside its part
-    (``chip_studies.py bounds``)."""
-    global _CHECK_INDEX
-    before, _CHECK_INDEX = _CHECK_INDEX, True
-    try:
-        yield
-    finally:
-        _CHECK_INDEX = before
 
 
 def _n_layers(net) -> int:
@@ -1138,7 +1121,7 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
           net_compute_dtype: torch.dtype = torch.float32,
           lane_block: int | None = None, mlp_chunks: int | None = None,
           interleave: int = 1, gelu: str = "auto",
-          ablate: str = "") -> Grid2Outputs:
+          ablate: str = "", *, index_checked: bool = False) -> Grid2Outputs:
     """The fused solve: one launch of ``kernels/grid2_cfr.cu`` runs all
     ``num_iters`` iterations for CUDA inputs (``B % lane_block == 0``);
     CPU inputs take :func:`solve_reference`.  Adds one per kernel launch
@@ -1153,7 +1136,12 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     workspace, the launch allocates it (:attr:`KernelPlan.ws_bytes` a
     block).  Options whose layout does not fit a block's shared memory
     raise (:func:`kernel_plan`) before anything is built or launched; a
-    launch the card refuses raises."""
+    launch the card refuses raises.  ``index_checked``: the launch runs the
+    index-checked build of the workspace instantiations
+    (``kernels/build.py`` ``load_checked``, ``chip_studies.py bounds``),
+    which traps on an index outside its part; its two-group units keep a
+    WsBody a group in shared memory, so the launch takes its shared memory
+    from the C side and raises ``ValueError`` where that does not fit."""
     dev = beliefs.device
     if dev.type == "cpu":
         return solve_reference(game, params, bids, players, beliefs, t_stop,
@@ -1229,12 +1217,16 @@ def solve(game: LiarsDice, params: SubgameSolvingParams,
     c_ints = (ctypes.c_int * len(ints))(*ints)
     from rebel_tpu_torch.kernels import build
 
-    lib = (build.load_checked("grid2_cfr") if _CHECK_INDEX
+    lib = (build.load_checked("grid2_cfr") if index_checked
            else build.load("grid2_cfr"))
     _declare(lib)
     smem = lib.grid2_cfr_smem_bytes(c_ints)
     ws_bytes = lib.grid2_cfr_workspace_bytes(c_ints)
-    if (smem, ws_bytes) != (plan.smem, plan.ws_bytes):
+    if index_checked and smem > SMEM_LIMIT:
+        raise ValueError(f"the index-checked build needs {smem} B of shared "
+                         f"memory per block, more than {SMEM_LIMIT}")
+    if (ws_bytes != plan.ws_bytes
+            or (smem != plan.smem and not index_checked)):
         raise RuntimeError(
             f"the kernel lays out {smem} B of shared memory and {ws_bytes} B "
             f"of workspace a block, and smem_layout reckons {plan.smem} B "

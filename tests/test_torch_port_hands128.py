@@ -16,10 +16,11 @@ kernel runs on the card only (``chip_smoke.py large-games``,
   4x3f against ``FastPallasEngine`` with its draws injected;
 * the plan: the three games take the workspace within the shared-memory
   limit at the smallest lane block, every game that launched
-  before keeps its plan, and ``interleave=2`` at these games and every
-  game over the limits is refused before anything is built;
-* ``grid2p.deal_wide``, ``deal_reach`` and ``deal_terminal`` (the kernel's
-  dealing of the rows) at 65-128 hands.
+  before keeps its plan, and ``interleave=2`` at these games is refused
+  before anything is built (the games over the limits:
+  ``test_torch_port_large_games.py``);
+* ``grid2p.deal_reach`` and ``deal_terminal`` (the kernel's dealing of the
+  rows) at 65-128 hands (``deal_wide``: ``test_torch_port_large_games.py``).
 
 Run alone: ``JAX_PLATFORMS=cpu python -m pytest
 tests/test_torch_port_hands128.py -q`` (some three minutes, most of it the
@@ -247,39 +248,7 @@ def test_interleave2_is_refused_over_64_hands(dice, faces):
                               1024, 1, interleave=2).groups == 1
 
 
-@pytest.mark.parametrize("dice,faces,match", [
-    (5, 3, "at most 128 hands, not 243"),
-    (3, 5, "queries of up to 256 values, not 283"),
-    (2, 11, "queries of up to 256 values, not 289"),
-    (1, 32, "at most 64 actions, not 65")])
-def test_games_over_the_new_limits_are_refused(dice, faces, match):
-    """Refused with a net and without, bf16 and f32, by ``kernel_plan`` and
-    ``choose_lane_block``, naming the ROADMAP's Queue 6 item."""
-    game = LiarsDice(dice, faces)
-    for net in (None, _net(game)):
-        for dtype in (torch.bfloat16, torch.float32):
-            with pytest.raises(ValueError, match=match):
-                grid2p.choose_lane_block(game, _params(True), net, dtype,
-                                         1024)
-            with pytest.raises(ValueError, match="Queue 6 item 1"):
-                grid2p.kernel_plan(game, _params(False), net, dtype, 1024, 1)
-
-
 # ---------------------------------------------------------- the dealing
-
-
-@pytest.mark.parametrize("n", [65, 81, 100, 128])
-def test_rows_over_64_are_dealt_once_in_order(n):
-    """``deal_wide``: lane l holds values l + 32 j, j < ceil(n / 32); the
-    sums visit every value once, register 0's 32 values, then register
-    1's, and so on."""
-    order = grid2p.deal_wide(n)
-    assert [v for v, _, _ in order] == list(range(n))
-    assert all(v == lane + 32 * j for v, lane, j in order)
-    assert max(j for _, _, j in order) == -(-n // 32) - 1
-    assert [j for _, _, j in order] == sorted(j for _, _, j in order)
-    with pytest.raises(ValueError, match="128"):
-        grid2p.deal_wide(129)
 
 
 @pytest.mark.parametrize("items,hands", [(301, 81), (37, 100), (5, 128)])

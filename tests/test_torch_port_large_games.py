@@ -339,18 +339,25 @@ def test_forced_workspace_plans_every_launch():
 @pytest.mark.parametrize("dice,faces,match", [
     (5, 3, "at most 128 hands, not 243"),
     (3, 5, "queries of up to 256 values, not 283"),
+    (2, 11, "queries of up to 256 values, not 289"),
     (1, 32, "at most 64 actions, not 65")])
-def test_games_over_the_limits_are_refused(dice, faces, match):
+@pytest.mark.parametrize("with_net", [False, True])
+def test_games_over_the_limits_are_refused(dice, faces, match, with_net):
     """Refused by ``kernel_plan`` and ``choose_lane_block`` for every lane
-    block, bf16 and f32, before anything is built or launched."""
+    block, bf16 and f32, CFR and FP, with a net and without, before
+    anything is built or launched, naming the ROADMAP's Queue 6 item."""
     game = LiarsDice(dice, faces)
+    net = _net(game) if with_net else None
     for dtype in (torch.bfloat16, torch.float32):
         with pytest.raises(ValueError, match=match):
-            grid2p.choose_lane_block(game, _params(True), None, dtype, 1024)
+            grid2p.choose_lane_block(game, _params(True), net, dtype, 1024)
         for lb in (1, 8):
-            with pytest.raises(ValueError, match=match):
-                grid2p.kernel_plan(game, _params(True), None, dtype, 1024,
-                                   lb)
+            for use_cfr in (True, False):
+                with pytest.raises(ValueError, match=match):
+                    grid2p.kernel_plan(game, _params(use_cfr), net, dtype,
+                                       1024, lb)
+        with pytest.raises(ValueError, match="Queue 6 item 1"):
+            grid2p.kernel_plan(game, _params(False), net, dtype, 1024, 1)
 
 
 # ---------------------------------------------------- the MLP and the body
@@ -414,17 +421,19 @@ def test_work_split_at_large_games(dice, faces):
         assert i.max() * lanes * H < 2**32
 
 
-@pytest.mark.parametrize("n", [1, 9, 32, 33, 36, 64])
+@pytest.mark.parametrize("n", [1, 9, 32, 33, 36, 64, 65, 81, 100, 128])
 def test_wide_rows_are_dealt_once_in_order(n):
-    """``deal_wide``: a row of n values, lane l holding values l and l + 32
-    (up to 64; four registers take rows up to 128); the sums visit every
-    value once, in index order, and rows of 32 or fewer take one register
-    a lane."""
+    """``deal_wide``: a row of n values, lane l holding values l + 32 j,
+    j < ceil(n / 32) (two registers up to 64 hands, four up to 128); the
+    sums visit every value once, in index order, register 0's 32 values,
+    then register 1's, and so on, and rows of 32 or fewer take one
+    register a lane."""
     order = grid2p.deal_wide(n)
     assert [v for v, _, _ in order] == list(range(n))
     assert all(v == lane + 32 * j for v, lane, j in order)
     assert {lane for _, lane, _ in order} <= set(range(32))
-    assert max(j for _, _, j in order) == (1 if n > 32 else 0)
+    assert max(j for _, _, j in order) == -(-n // 32) - 1
+    assert [j for _, _, j in order] == sorted(j for _, _, j in order)
     with pytest.raises(ValueError, match="128"):
         grid2p.deal_wide(129)
 

@@ -461,8 +461,8 @@ def test_ring_bits_nets_give_the_same_bits(width, layers, solver):
 
 def test_sum_order_counts_snapshot_lanes(tmp_path):
     """``python3 chip_studies.py sum-order --fresh`` on a small net of the
-    ``widths`` phase's kind: each plain version is held to the f32 one,
-    and each row counts the share of lanes whose snapshots move by more
+    ``widths`` phase's kind: each plain version is held to the f32 one
+    and to the one with exact sums, and each row counts the share of lanes whose snapshots move by more
     than ``chip_smoke.py``'s LANE_TOL (the lanes statistic of its
     checks); the f32 version against itself would read 0."""
     import json
@@ -476,7 +476,8 @@ def test_sum_order_counts_snapshot_lanes(tmp_path):
                          "--fresh", "16x3", "--noln", "--net-seed", "1",
                          "--solver", "fp", "--lanes", "4", "--iters", "4",
                          "--orders", "f32", "f64", "tc_chained"])
-    assert [r["pair"] for r in rows] == ["f32-f64", "f32-tc_chained"]
+    assert [r["pair"] for r in rows] == ["f32-f64", "f32-tc_chained",
+                                         "f64-tc_chained"]
     for r in rows:
         assert r["net"] == "16x3 noln" and 0 <= r["snap_lanes"] <= 1
         assert r["rvm_max"] < 1e-3
